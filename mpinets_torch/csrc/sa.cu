@@ -4,7 +4,10 @@
 // fast (chunk-window) grouping.
 //
 // Replaces: mpinets_tpu/kernels/pallas_ops.py::_sa_kernel_v8 (exact,
-// chunks = null) and ::_sa_kernel_f1 (fast, chunks = per-centroid window).
+// chunks = null, in_cloud = 1; with its return_raw output when raw is not
+// null), ::_sa_kernel_f1 (fast, chunks = per-centroid window), and
+// ::_sa_kernel (v3) and ::_sa_kernel_v5 (exact, in_cloud = 0: centroids
+// need not be cloud members; v5 with centroids_in_cloud=True is v8).
 //
 // Function, per (batch row b, centroid s):
 //  * candidates are scanned in order -- every point by index (exact), or
@@ -20,14 +23,27 @@
 //    the bias, (raw . W1 + b1) - W1[:3]^T c in f32 (the v8 form,
 //    pallas_ops.py:928-953), then ReLU, layers 2-3 with ReLU, and a max over
 //    the slots below max(count, 1). With no neighbour, slot 0 is a zero
-//    raw row (pallas_ops.py:1132-1183).
+//    raw row (pallas_ops.py:1132-1183) when in_cloud = 1; when in_cloud = 0
+//    slot 0's layer-1 pre-activation is point 0's row instead,
+//    b1 + sum_ch pts0[ch] * W1[ch] - W1[:3]^T c in f32 with the unrounded W1
+//    (the CUDA count==0 fallback, pallas_ops.py:430-442,661-682).
+//  * raw (optional, [b, s, 128, 3 + c] f32): the gathered rows of the kept
+//    points as read, neither recentred nor rounded, slot j the j-th kept
+//    point in scan order; zero rows past the count (pallas_ops.py:920-926).
+//    The train path's backward reads it instead of gathering again.
 //
 // What bounds it on the H100: operations. The MLP is 2.8e11 FLOP at SA0
 // and 4.8e11 at SA1 for B=256 when every slot is filled; the kernel skips
 // rows past each centroid's neighbour count, and its inputs are a few MB.
 // This first version runs the products on the CUDA cores (67 TFLOP/s f32
 // peak, against 989 TFLOP/s bf16 on the tensor cores), so it sits far above
-// the bound; moving the products to wgmma is a later step.
+// the bound; moving the products to wgmma is a later step. The raw block,
+// when asked for, adds bytes: B*S*128*(3+C)*4 written (4.4 MB per sample at
+// SA1), written once per centroid, coalesced, from rows the scan just read.
+// The raw block and the off-cloud branch are template parameters, so the
+// inference launch (neither) compiles to the kernel without them. The raw
+// block is a v8 output and so comes only with in_cloud = 1: three
+// instantiations are built, and mpn_sa refuses raw with in_cloud = 0.
 //
 // Design: one block of 8 warps per 8 centroids of one batch row. Selection
 // is one warp per centroid: each step tests 32 candidates, __ballot_sync +
@@ -64,7 +80,8 @@ struct SaArgs {
   const float* cent;    // [b, s, 3]
   const int* chunks;    // [b, s, window] (fast) or null (exact)
   const float* w1;      // [kp, c1], compute-rounded, rows >= 3 + c are 0
-  const float* w1xyz;   // [3, c1] f32: recentring bias weights
+  const float* w1f;     // [3 + c, c1] f32, unrounded: rows 0-2 give the
+                        // recentring bias, all rows the count==0 row
   const float* b1;      // [c1]
   const float* w2;      // [c1, c2], compute-rounded
   const float* b2;      // [c2]
@@ -72,6 +89,7 @@ struct SaArgs {
   const float* b3;      // [c3]
   float* out;           // [b, s, c3]
   int* idx;             // [b, s, kNs]
+  float* raw;           // [b, s, kNs, 3 + c] (kRaw) or null
   int n, s, c, kp, c1, c2, c3, window, bf16;
   float r2;
 };
@@ -134,6 +152,9 @@ __device__ __forceinline__ void dense(const float* in, int kin, const float* __r
   }
 }
 
+// kRaw: write the raw block; kPoint0: a centroid without neighbours takes
+// point 0's layer-1 row (centroids off the cloud), else a zero raw row.
+template <bool kRaw, bool kPoint0>
 __global__ void __launch_bounds__(kThreads) sa_kernel(SaArgs a) {
   extern __shared__ float4 smem4[];
   float* raw = reinterpret_cast<float*>(smem4);  // [kRows][kp]
@@ -207,9 +228,24 @@ __global__ void __launch_bounds__(kThreads) sa_kernel(SaArgs a) {
     const float* c = a.cent + ((size_t)b * a.s + s) * 3;
     const float cx = c[0], cy = c[1], cz = c[2];
     for (int j = tid; j < a.c1; j += kThreads) {
-      bc[j] = a.w1xyz[j] * cx + a.w1xyz[a.c1 + j] * cy + a.w1xyz[2 * a.c1 + j] * cz;
+      bc[j] = a.w1f[j] * cx + a.w1f[a.c1 + j] * cy + a.w1f[2 * a.c1 + j] * cz;
     }
     for (int i = tid; i < kGroups * a.c3; i += kThreads) pmax[i] = -INFINITY;
+    if constexpr (kRaw) {
+      // all 128 slots, coalesced: kept rows as read, zero rows after them
+      const int p = 3 + a.c;
+      float* raw_out = a.raw + ((size_t)b * a.s + s) * kNs * p;
+      for (int i = tid; i < kNs * p; i += kThreads) {
+        const int r = i / p;
+        const int k = i - r * p;
+        float v = 0.f;
+        if (r < kept) {
+          const int q = sel[g * kNs + r];
+          v = k < 3 ? xyz[3 * q + k] : feat[(size_t)q * a.c + (k - 3)];
+        }
+        raw_out[i] = v;
+      }
+    }
     for (int r0 = 0; r0 < nrows; r0 += kRows) {
       for (int i = tid; i < kRows * a.kp; i += kThreads) {
         const int r = i / a.kp;
@@ -225,6 +261,17 @@ __global__ void __launch_bounds__(kThreads) sa_kernel(SaArgs a) {
       __syncthreads();
       dense<0>(raw, a.kp, a.w1, a.b1, bc, a.c1, h1, 0, bf16);
       __syncthreads();
+      if (kPoint0 && cnt[g] == 0) {  // block-uniform; then nrows == 1, row 0 only
+        for (int j = tid; j < a.c1; j += kThreads) {
+          float h = a.b1[j];
+          for (int k = 0; k < 3 + a.c; ++k) {
+            h += (k < 3 ? xyz[k] : feat[k - 3]) * a.w1f[(size_t)k * a.c1 + j];
+          }
+          h = fmaxf(h - bc[j], 0.f);
+          h1[j] = bf16 ? round_bf16(h) : h;
+        }
+        __syncthreads();
+      }
       dense<1>(h1, a.c1, a.w2, a.b2, nullptr, a.c2, h2, 0, bf16);
       __syncthreads();
       dense<2>(h2, a.c2, a.w3, a.b3, nullptr, a.c3, pmax, nrows - r0, bf16);
@@ -246,23 +293,29 @@ __global__ void __launch_bounds__(kThreads) sa_kernel(SaArgs a) {
 extern "C" {
 
 // Shapes as in SaArgs. chunks == null selects the exact scan, else the fast
-// window scan over `window` chunks per centroid. kp, c1 and c2 must be
+// window scan over `window` chunks per centroid. in_cloud = 0 gives a
+// centroid without neighbours point 0's layer-1 row; raw == null writes no
+// raw block, and a raw block needs in_cloud = 1. kp, c1 and c2 must be
 // multiples of 4. Returns a cudaError_t.
 int mpn_sa(const float* xyz, const float* feat, const float* cent, const int* chunks,
-           int window, const float* w1, const float* w1xyz, const float* b1, const float* w2,
+           int window, const float* w1, const float* w1f, const float* b1, const float* w2,
            const float* b2, const float* w3, const float* b3, int b, int n, int s, int c,
-           int kp, int c1, int c2, int c3, float r2, int bf16, float* out, int* idx,
-           void* stream) {
-  if (kp % 4 || c1 % 4 || c2 % 4 || kp < 3 + c || b > 65535) return (int)cudaErrorInvalidValue;
-  SaArgs a{xyz, feat, cent, chunks, w1, w1xyz, b1, w2, b2, w3, b3, out, idx,
+           int kp, int c1, int c2, int c3, float r2, int bf16, int in_cloud, float* out,
+           int* idx, float* raw, void* stream) {
+  if (kp % 4 || c1 % 4 || c2 % 4 || kp < 3 + c || b > 65535 || (raw && !in_cloud))
+    return (int)cudaErrorInvalidValue;
+  SaArgs a{xyz, feat, cent, chunks, w1, w1f, b1, w2, b2, w3, b3, out, idx, raw,
            n, s, c, kp, c1, c2, c3, window, bf16, r2};
   const size_t floats = (size_t)kRows * (kp + c1 + c2) + c1 + (size_t)kGroups * c3;
   const size_t smem = floats * sizeof(float) + (kTs * kNs + kTs) * sizeof(int);
-  cudaError_t e = cudaFuncSetAttribute(sa_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  void (*kernel)(SaArgs) = raw        ? sa_kernel<true, false>
+                           : in_cloud ? sa_kernel<false, false>
+                                      : sa_kernel<false, true>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((s + kTs - 1) / kTs, b);
-  sa_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -1,21 +1,27 @@
-"""Synthetic planning problems.
+"""Synthetic planning problems and training batches.
 
-Port of the problem half of ``mpinets_tpu/data/synthetic.py``
-(``Problem``, ``random_configuration``, ``random_scene``,
-``random_problem``, ``random_problem_batch``; ``training_batch`` comes with
-the train slice). Draws come from a ``torch.Generator``; they follow the
-same distributions as the JAX package's, not its numbers.
+Port of ``mpinets_tpu/data/synthetic.py``: ``Problem``,
+``random_configuration``, ``random_scene``, ``random_problem(_batch)``,
+``min_jerk_trajectory`` and ``training_batch``. Draws come from a
+``torch.Generator``; they follow the same distributions as the JAX
+package's, not its numbers. ``training_batch`` takes its draws split from
+the construction (:class:`TrainingDraws`), so a test can hand it the draws
+the JAX package made.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
-from mpinets_torch.geom.scene import SceneSet
+from mpinets_torch.geom.assembly import PointCloudSizes, assemble_point_cloud
+from mpinets_torch.geom.scene import ObstacleDraws, SceneSet, draw_obstacle_samples
 from mpinets_torch.kernels import kinematics
-from mpinets_torch.robot import franka
+from mpinets_torch.robot import franka, point_banks
+from mpinets_torch.utils.normalization import clamp_to_limits, normalize_franka_joints
+
+SEQUENCE_LENGTH = 50  # gen_data.py:77
 
 
 class Problem(NamedTuple):
@@ -125,3 +131,88 @@ def random_problem(generator: Optional[torch.Generator] = None, device=None) -> 
         batch.q0[0], batch.target_rot[0], batch.target_trans[0],
         SceneSet(*(t[0] for t in batch.scene)),
     )
+
+
+def min_jerk_trajectory(q_start: torch.Tensor, q_goal: torch.Tensor,
+                        length: int = SEQUENCE_LENGTH) -> torch.Tensor:
+    """Smooth pseudo-expert trajectory [..., length, 7]: minimum-jerk time
+    scaling of the straight configuration-space segment."""
+    # written as jnp.linspace and XLA's integer powers compute it, so the
+    # values match the JAX package's bit for bit
+    step = 1.0 / max(length - 1, 1)
+    s = torch.arange(length, dtype=q_start.dtype, device=q_start.device) * step
+    s2 = s * s
+    s4 = s2 * s2
+    s = 10 * (s2 * s) - 15 * s4 + 6 * (s4 * s)
+    return q_start[..., None, :] + s[:, None] * (q_goal - q_start)[..., None, :]
+
+
+class TrainingDraws(NamedTuple):
+    """The random numbers behind one :func:`training_batch`."""
+
+    scene: SceneSet              # [B, ...]
+    q0: torch.Tensor             # [B, 7] trajectory starts
+    q_goal: torch.Tensor         # [B, 7] trajectory goals
+    t: torch.Tensor              # [B] int timestep in [0, SEQUENCE_LENGTH)
+    noise: torch.Tensor          # [B, 7] standard normal (scaled by random_scale)
+    robot_indices: torch.Tensor  # [B, sizes.robot] robot-bank indices
+    obstacle: ObstacleDraws      # [B, sizes.obstacle] per point
+
+
+def draw_training_batch(generator: Optional[torch.Generator], batch_size: int,
+                        sizes: PointCloudSizes = PointCloudSizes(),
+                        device=None) -> TrainingDraws:
+    """Draws for :func:`training_batch`, from ``generator``."""
+    scene = random_scene(generator, batch_size, device=device)
+    q0 = random_configuration(generator, (batch_size,), device)
+    q_goal = random_configuration(generator, (batch_size,), device)
+    t = torch.randint(0, SEQUENCE_LENGTH, (batch_size,), generator=generator, device=device)
+    noise = torch.randn((batch_size, franka.DOF), generator=generator, device=device)
+    robot_indices = torch.randint(0, point_banks.DEFAULT_BANK_SIZE, (batch_size, sizes.robot),
+                                  generator=generator, device=device)
+    obstacle = draw_obstacle_samples(scene, sizes.obstacle, generator)
+    return TrainingDraws(scene, q0, q_goal, t, noise, robot_indices, obstacle)
+
+
+def training_batch(
+    generator: Optional[torch.Generator] = None,
+    batch_size: int = 1,
+    sizes: PointCloudSizes = PointCloudSizes(),
+    random_scale: float = 0.015,
+    device=None,
+    draws: Optional[TrainingDraws] = None,
+) -> Dict[str, torch.Tensor]:
+    """A training batch with the reference's key layout
+    (``data_loader.py:141-280``), built on ``device``: timesteps uniform
+    along pseudo-expert trajectories, the target pose at the FK of the
+    trajectory's goal (``data_loader.py:155-157``), joint noise of sigma
+    ``random_scale`` clamped to the limits (``data_loader.py:167-179``), and
+    the supervision the next configuration. ``draws`` replaces the draws
+    from ``generator``.
+    """
+    if draws is None:
+        draws = draw_training_batch(generator, batch_size, sizes, device)
+    scene = draws.scene
+    traj = min_jerk_trajectory(draws.q0, draws.q_goal)       # [B, T, 7]
+    t = draws.t.long()
+    rows = torch.arange(traj.shape[0], device=traj.device)
+    q_t = traj[rows, t]
+    q_next = traj[rows, torch.clamp(t + 1, 0, SEQUENCE_LENGTH - 1)]
+    rot_goal, trans_goal = kinematics.eff_pose(draws.q_goal)
+    q_noisy = clamp_to_limits(q_t + random_scale * draws.noise)
+    xyz = assemble_point_cloud(q_noisy, rot_goal, trans_goal, scene, sizes,
+                               robot_indices=draws.robot_indices,
+                               obstacle_draws=draws.obstacle)
+    return {
+        "xyz": xyz,
+        "configuration": normalize_franka_joints(q_noisy),
+        "supervision": normalize_franka_joints(q_next),
+        "target_position": trans_goal,
+        "cuboid_centers": scene.cuboid_centers,
+        "cuboid_dims": scene.cuboid_dims,
+        "cuboid_quats": scene.cuboid_quats,
+        "cylinder_centers": scene.cylinder_centers,
+        "cylinder_radii": scene.cylinder_radii,
+        "cylinder_heights": scene.cylinder_heights,
+        "cylinder_quats": scene.cylinder_quats,
+    }

@@ -13,7 +13,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from mpinets_torch.geom.scene import SceneSet, sample_obstacle_points
+from mpinets_torch.geom.scene import ObstacleDraws, SceneSet, sample_obstacle_points
 from mpinets_torch.robot import sampler
 
 NUM_ROBOT_POINTS = 2048
@@ -58,15 +58,21 @@ def assemble_point_cloud(
     scene: SceneSet,
     sizes: PointCloudSizes = PointCloudSizes(),
     generator: Optional[torch.Generator] = None,
+    robot_indices: Optional[torch.Tensor] = None,
+    obstacle_draws: Optional[ObstacleDraws] = None,
 ) -> torch.Tensor:
     """Build the [..., N, 4] input cloud for a batch of problems.
 
     :param q0: starting configurations [..., 7]
     :param target_rot/target_trans: target EE poses (right_gripper frame)
     :param scene: SceneSet batched like ``q0``
+    :param robot_indices/obstacle_draws: given draws ([..., sizes.robot]
+        bank indices; :class:`ObstacleDraws`), used instead of drawing from
+        ``generator``
     """
-    robot = sampler.sample_robot_points(q0, generator, sizes.robot)
-    obstacles = sample_obstacle_points(scene, sizes.obstacle, generator)[..., :3]
+    robot = sampler.sample_robot_points(q0, generator, sizes.robot, indices=robot_indices)
+    obstacles = sample_obstacle_points(scene, sizes.obstacle, generator,
+                                       draws=obstacle_draws)[..., :3]
     target = sampler.sample_end_effector(target_rot, target_trans, sizes.target)
     return _stack_cloud(robot, obstacles, target, sizes)
 

@@ -1,8 +1,9 @@
 """Batched forward kinematics for the Franka Panda.
 
-Port of ``mpinets_tpu/kernels/kinematics.py`` (``fk_frames``, ``eff_pose``,
-``eff_pose_quat``; the collision-sphere functions come with the train
-slice). The chain is a short unrolled sequence of batched 3x3 products, so
+Port of ``mpinets_tpu/kernels/kinematics.py``: ``fk_frames``, ``eff_pose``,
+``eff_pose_quat``, the 57-sphere collision model (``collision_spheres``,
+``scene_collision_spheres``), ``self_collision`` and ``within_limits``. The
+chain is a short unrolled sequence of batched 3x3 products, so
 a [B, 7] batch of configurations turns into [B, F, 3, 3] + [B, F, 3] frame
 poses. Frames are indexed by :data:`mpinets_torch.robot.franka.FRAMES`.
 """
@@ -102,3 +103,48 @@ def eff_pose_quat(q: torch.Tensor):
     """End-effector pose as (position [..., 3], wxyz quaternion [..., 4])."""
     rot, trans = eff_pose(q)
     return trans, matrix_to_quat(rot)
+
+
+def _spheres(q: torch.Tensor, frames, centers) -> torch.Tensor:
+    rots, transs = fk_frames(q)
+    idx = torch.as_tensor(frames, dtype=torch.long, device=q.device)
+    local = torch.as_tensor(centers, dtype=q.dtype, device=q.device)
+    s_rot = rots.index_select(-3, idx)      # [..., S, 3, 3]
+    s_trans = transs.index_select(-2, idx)  # [..., S, 3]
+    return torch.einsum("...sij,sj->...si", s_rot, local) + s_trans
+
+
+def collision_spheres(q: torch.Tensor) -> torch.Tensor:
+    """World-frame centres of the 57-sphere collision model (robofin's
+    ``FrankaCollisionSampler.compute_spheres``, used at ``model.py:300-303``).
+    q [..., 7] -> [..., 57, 3]; radii are :data:`franka.SPHERE_RADII`."""
+    return _spheres(q, franka.SPHERE_FRAMES, franka.SPHERE_CENTERS)
+
+
+def scene_collision_spheres(q: torch.Tensor) -> torch.Tensor:
+    """The spheres checked against scene geometry: the 57-sphere table
+    without the base link (``with_base_link=False``, ``model.py:270``).
+    Radii: :data:`franka.SCENE_SPHERE_RADII`."""
+    return _spheres(q, franka.SCENE_SPHERE_FRAMES, franka.SCENE_SPHERE_CENTERS)
+
+
+def self_collision(q: torch.Tensor, margin: float = 0.0) -> torch.Tensor:
+    """Sphere-model self-collision (robofin's
+    ``FrankaSelfCollisionChecker.has_self_collision``, ``metrics.py:266``):
+    True when an allowed sphere pair is closer than the sum of its radii
+    (+ margin). q [..., 7] -> bool [...]."""
+    centers = collision_spheres(q)
+    pairs = torch.as_tensor(franka.SELF_COLLISION_PAIRS, dtype=torch.long, device=q.device)
+    thresh = torch.as_tensor(franka.SELF_COLLISION_THRESH, dtype=q.dtype, device=q.device) + margin
+    a = centers.index_select(-2, pairs[:, 0])
+    b = centers.index_select(-2, pairs[:, 1])
+    d2 = ((a - b) ** 2).sum(dim=-1)
+    return torch.any(d2 < thresh ** 2, dim=-1)
+
+
+def within_limits(q: torch.Tensor, use_real_constraints: bool = False) -> torch.Tensor:
+    """Joint-limit predicate (``FrankaRobot.within_limits``,
+    ``metrics.py:320``). q [..., 7] -> bool [...]."""
+    table = franka.REAL_JOINT_LIMITS if use_real_constraints else franka.JOINT_LIMITS
+    limits = torch.as_tensor(table, dtype=q.dtype, device=q.device)
+    return torch.all((q >= limits[:, 0]) & (q <= limits[:, 1]), dim=-1)

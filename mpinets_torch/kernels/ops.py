@@ -6,8 +6,10 @@ Port of ``mpinets_tpu/kernels/pallas_ops.py``:
 * :func:`furthest_point_sample_with_coords` -- ``csrc/fps.cu``, replacing
   ``_fps_kernel`` / ``_fps_kernel_v2``.
 * :func:`sa_stage` -- ``csrc/sa.cu`` (exact scan), replacing
-  ``_sa_kernel_v8`` as reached through ``sa_stage(impl="v8",
-  centroids_in_cloud=True)``.
+  ``_sa_kernel_v8`` (``impl="v8"``, with its ``return_raw`` block), and
+  ``_sa_kernel`` / ``_sa_kernel_v5`` (``impl="v3"``/``"v5"``): v3, and v5
+  with ``centroids_in_cloud=False``, give a centroid without neighbours
+  point 0's layer-1 row; v5 with ``centroids_in_cloud=True`` is v8.
 * :func:`sa_stage_fast` -- ``csrc/sa.cu`` (chunk-window scan), replacing
   ``_sa_kernel_f1``. The window choice stays here, in torch, as the JAX
   package keeps it in XLA.
@@ -19,7 +21,9 @@ A wrapper given CPU tensors computes the plain version, which repeats the
 kernel's arithmetic (the raw-row layer 1 with the folded recentring bias,
 and the bf16 rounding points of the TPU kernels). Given CUDA tensors it
 launches the kernel or raises; it never falls back. Each launch adds one to
-:data:`LAUNCHES` and to :data:`LAUNCHES_BY_SHAPE`.
+:data:`LAUNCHES` and to :data:`LAUNCHES_BY_SHAPE`, under the name of the
+kernel's variant: ``sa`` (exact, in-cloud), ``sa_raw`` (exact, with the raw
+block), ``sa_v3`` (exact, off-cloud) or ``sa_fast``.
 
 The kernels are built at first use with ``nvcc`` into shared libraries with
 a plain C interface, loaded through ``ctypes``, under :data:`BUILD_DIR`.
@@ -58,7 +62,7 @@ CHUNK = 128
 FPS_MAX_POINTS = 8192
 
 #: Kernel launches since the last :func:`reset_launches`, by wrapper.
-LAUNCHES: Dict[str, int] = {"fps": 0, "sa": 0, "sa_fast": 0}
+LAUNCHES: Dict[str, int] = {"fps": 0, "sa": 0, "sa_raw": 0, "sa_v3": 0, "sa_fast": 0}
 #: The same launches by (wrapper, N, S): cloud size and samples or centroids.
 LAUNCHES_BY_SHAPE: Counter = Counter()
 
@@ -66,7 +70,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "mpn_fps": [_P, _I, _I, _I, _I, _P, _P, _P],
-    "mpn_sa": [_P] * 4 + [_I] + [_P] * 7 + [_I] * 8 + [ctypes.c_float, _I, _P, _P, _P],
+    "mpn_sa": [_P] * 4 + [_I] + [_P] * 7 + [_I] * 8 + [ctypes.c_float, _I, _I] + [_P] * 4,
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -254,7 +258,7 @@ class SAWeights(NamedTuple):
     [in, out], contiguous f32 on the stage's device."""
 
     w1: torch.Tensor       # [kp, C1] rounded to the compute type; zero rows past 3 + C
-    w1_xyz: torch.Tensor   # [3, C1] unrounded: the folded recentring bias's weights
+    w1_f32: torch.Tensor   # [3 + C, C1] unrounded: the recentring bias and the count==0 row
     b1: torch.Tensor       # [C1]
     w2: torch.Tensor       # [C1, C2] rounded
     b2: torch.Tensor       # [C2]
@@ -266,11 +270,16 @@ class SAWeights(NamedTuple):
     def tensors(self) -> Tuple[torch.Tensor, ...]:
         return tuple(self[:7])
 
+    @property
+    def w1_xyz(self) -> torch.Tensor:
+        """[3, C1] unrounded: the folded recentring bias's weights."""
+        return self.w1_f32[:3]
+
 
 def _check_rows(weights: SAWeights, c: int) -> None:
-    if weights.w1.shape[0] != -(-(3 + c) // 4) * 4:
-        raise ValueError(f"weights take {weights.w1.shape[0]} padded input rows, "
-                         f"features give 3 + {c}")
+    if weights.w1_f32.shape[0] != 3 + c:
+        raise ValueError(f"weights take {weights.w1_f32.shape[0]} input rows "
+                         f"({weights.w1.shape[0]} padded input rows), features give 3 + {c}")
 
 
 @torch.no_grad()
@@ -288,16 +297,19 @@ def prepare_sa_weights(w1, b1, w2, b2, w3, b3, compute_dtype=torch.bfloat16) -> 
     kp = -(-k // 4) * 4
     return SAWeights(
         torch.nn.functional.pad(rnd(w1), (0, 0, 0, kp - k)).contiguous(),
-        w1[:3].contiguous(), b1.contiguous(), rnd(w2).contiguous(), b2.contiguous(),
+        w1.contiguous(), b1.contiguous(), rnd(w2).contiguous(), b2.contiguous(),
         rnd(w3).contiguous(), b3.contiguous(), compute_dtype,
     )
 
 
 def sa_plain(xyz, features, centroids, weights: SAWeights, radius: float,
-             chunks: Optional[torch.Tensor] = None):
+             chunks: Optional[torch.Tensor] = None, in_cloud: bool = True,
+             return_raw: bool = False):
     """Plain version of the SA kernel (``chunks=None``: exact scan; else the
     fast window scan over ``chunks`` [B, S, W]), following the kernel's
-    arithmetic. -> (features [B, S, C3] f32, idx int32 [B, S, 128])."""
+    arithmetic. ``in_cloud=False`` gives a centroid without neighbours point
+    0's layer-1 row. -> (features [B, S, C3] f32, idx int32 [B, S, 128]) and,
+    with ``return_raw``, the raw block [B, S, 128, 3 + C] f32."""
     rnd = _rounder(weights.compute_dtype)
     bf16 = weights.compute_dtype == torch.bfloat16
     b, n, _ = xyz.shape
@@ -333,26 +345,40 @@ def sa_plain(xyz, features, centroids, weights: SAWeights, radius: float,
 
     raw = torch.cat([pointnet.gather_points(xyz, sel), pointnet.gather_points(features, sel)],
                     dim=-1).float()
-    raw = rnd(torch.where(found[..., None], raw, torch.zeros_like(raw)))
+    raw = torch.where(found[..., None], raw, torch.zeros_like(raw))
     w = weights
     bc = centroids.float() @ w.w1_xyz                         # [B, S, C1] f32
-    h = raw @ w.w1[: raw.shape[-1]] + w.b1 - bc[:, :, None, :]
+    h = rnd(raw) @ w.w1[: raw.shape[-1]] + w.b1 - bc[:, :, None, :]
+    if not in_cloud:
+        # count == 0: slot 0 is point 0's layer-1 row, unrounded, in f32
+        pts0 = torch.cat([xyz[:, 0], features[:, 0]], dim=-1).float()  # [B, 3 + C]
+        h0 = w.b1.expand(b, -1)
+        for ch in range(pts0.shape[-1]):
+            h0 = h0 + pts0[:, ch, None] * w.w1_f32[ch]
+        h0 = h0[:, None, :] - bc                              # [B, S, C1]
+        h[:, :, 0] = torch.where((count == 0)[..., None], h0, h[:, :, 0])
     h = rnd(torch.relu(h))
     h = rnd(torch.relu(h @ w.w2 + w.b2))
     h = torch.relu(h @ w.w3 + w.b3)
     valid = torch.arange(NSAMPLE, device=dev) < torch.clamp(count, 1, NSAMPLE)[..., None]
     h = torch.where(valid[..., None], h, torch.full_like(h, -torch.inf))
+    if return_raw:
+        return h.amax(dim=-2), idx, raw
     return h.amax(dim=-2), idx
 
 
 def sa_kernel(xyz, features, centroids, weights: SAWeights, radius: float,
-              chunks: Optional[torch.Tensor] = None):
+              chunks: Optional[torch.Tensor] = None, in_cloud: bool = True,
+              return_raw: bool = False):
     """The SA kernel alone, on CUDA tensors: the exact scan (``chunks``
-    None) or the window scan over ``chunks`` int32 [B, S, W]. What
-    :func:`sa_stage` and :func:`sa_stage_fast` launch."""
+    None) or the window scan over ``chunks`` int32 [B, S, W]; ``in_cloud``
+    and ``return_raw`` as in :func:`sa_plain`. What :func:`sa_stage` and
+    :func:`sa_stage_fast` launch."""
     extra = () if chunks is None else (chunks,)
     if _on_cpu(xyz, features, centroids, *weights.tensors, *extra):
         raise ValueError("sa_kernel takes CUDA tensors (sa_stage runs the plain version)")
+    if return_raw and not (in_cloud and chunks is None):
+        raise ValueError("the raw block is an output of the exact in-cloud (v8) scan only")
     b, n, _ = xyz.shape
     c = features.shape[-1]
     s = centroids.shape[1]
@@ -370,35 +396,62 @@ def sa_kernel(xyz, features, centroids, weights: SAWeights, radius: float,
                          f"got C1={c1}, C2={c2}, B={b}, S={s}")
     out = torch.empty((b, s, c3), dtype=torch.float32, device=xyz.device)
     idx = torch.empty((b, s, NSAMPLE), dtype=torch.int32, device=xyz.device)
+    raw = (torch.empty((b, s, NSAMPLE, 3 + c), dtype=torch.float32, device=xyz.device)
+           if return_raw else None)
     window = 0 if chunks is None else chunks.shape[-1]
     _launch(
         "sa", "mpn_sa", xyz.device,
         xyz.data_ptr(), features.data_ptr(), centroids.data_ptr(),
         None if chunks is None else chunks.data_ptr(), window,
-        w.w1.data_ptr(), w.w1_xyz.data_ptr(), w.b1.data_ptr(), w.w2.data_ptr(),
+        w.w1.data_ptr(), w.w1_f32.data_ptr(), w.b1.data_ptr(), w.w2.data_ptr(),
         w.b2.data_ptr(), w.w3.data_ptr(), w.b3.data_ptr(), b, n, s, c, kp, c1, c2, c3,
         float(torch.tensor(radius * radius, dtype=torch.float32)),
-        int(w.compute_dtype == torch.bfloat16), out.data_ptr(), idx.data_ptr(),
+        int(w.compute_dtype == torch.bfloat16), int(in_cloud), out.data_ptr(), idx.data_ptr(),
+        None if raw is None else raw.data_ptr(),
     )
-    _count("sa" if chunks is None else "sa_fast", n, s)
-    return out, idx
+    if chunks is not None:
+        name = "sa_fast"
+    elif return_raw:
+        name = "sa_raw"
+    else:
+        name = "sa" if in_cloud else "sa_v3"
+    _count(name, n, s)
+    return (out, idx, raw) if return_raw else (out, idx)
 
 
 def sa_stage(xyz, features, centroids, weights: SAWeights, radius: float,
-             nsample: int = NSAMPLE):
+             nsample: int = NSAMPLE, impl: str = "v3", centroids_in_cloud: bool = False,
+             return_raw: bool = False):
     """Exact fused SA stage: ball query (first 128 in index order) + gather +
     3-layer shared MLP + max-pool, with the CUDA ``pointnet2_ops``
     selection semantics, computed in ``weights.compute_dtype``.
 
-    xyz [B, N, 3], features [B, N, C], centroids [B, S, 3] (cloud members,
-    as FPS gives them); ``weights`` from :func:`prepare_sa_weights`.
-    -> (features [B, S, C3] f32, idx int32 [B, S, 128] with fill-with-first).
+    xyz [B, N, 3], features [B, N, C], centroids [B, S, 3]; ``weights`` from
+    :func:`prepare_sa_weights`. -> (features [B, S, C3] f32, idx int32
+    [B, S, 128] with fill-with-first), and with ``return_raw`` (``impl="v8"``
+    only) the raw block [B, S, 128, 3 + C] f32: each slot's gathered
+    ``[xyz, feat]`` as given, not recentred, zero past the count.
+
+    ``impl`` names the TPU kernel and, with ``centroids_in_cloud``, the
+    count==0 rule: "v3" always, and "v5" when ``centroids_in_cloud`` is
+    False, give a centroid without neighbours point 0's layer-1 row (its
+    idx all 0); "v8" requires ``centroids_in_cloud`` (every centroid a cloud
+    member, as FPS gives them), and "v5" with it computes what v8 does.
+    The defaults are the JAX package's (v3, off the cloud); the policy's
+    paths pass ``impl`` and ``centroids_in_cloud`` explicitly.
     """
     if nsample != NSAMPLE:
         raise ValueError(f"the SA kernel keeps {NSAMPLE} neighbours, got nsample={nsample}")
+    if impl not in ("v3", "v5", "v8"):
+        raise ValueError(f"unknown SA impl {impl!r}")
+    if impl == "v8" and not centroids_in_cloud:
+        raise ValueError("impl='v8' assumes centroids are cloud members (centroids_in_cloud=True)")
+    if return_raw and impl != "v8":
+        raise ValueError("return_raw is an output of the v8 kernel only")
+    in_cloud = centroids_in_cloud and impl != "v3"
     if _on_cpu(xyz, features, centroids, *weights.tensors):
-        return sa_plain(xyz, features, centroids, weights, radius)
-    return sa_kernel(xyz, features, centroids, weights, radius)
+        return sa_plain(xyz, features, centroids, weights, radius, None, in_cloud, return_raw)
+    return sa_kernel(xyz, features, centroids, weights, radius, None, in_cloud, return_raw)
 
 
 def sa_stage_fast(xyz, features, centroids, weights: SAWeights, radius: float,

@@ -5,8 +5,9 @@ Port of ``mpinets_tpu/model/fused.py``. It computes
 same module's weights:
 
 * SA0 / SA1: the FPS kernel (with the picked coordinates) and the fused
-  ball-query / group / MLP / max-pool kernel -- exact, or the relaxed
-  chunk-window kernel for SA0 when ``fast_grouping=W > 0``
+  ball-query / group / MLP / max-pool kernel -- exact (``sa_impl`` "v8",
+  or "v3"/"v5", which name the TPU's other layouts of the same stage), or
+  the relaxed chunk-window kernel for SA0 when ``fast_grouping=W > 0``
   (:mod:`mpinets_torch.kernels.ops`);
 * global SA (group-all), FC head with GroupNorm, q-encoder and decoder:
   plain dense products (:func:`tail`), as the JAX package leaves them to
@@ -23,9 +24,14 @@ from torch.nn import functional as F
 
 from mpinets_torch.kernels import ops
 
-#: Reference stage sizes (model.py:364-383); npoints are overridable.
-SA0 = dict(radius=0.05, nsample=128)
-SA1 = dict(radius=0.3, nsample=128)
+
+def stage_sizes(model):
+    """(SA0, SA1) radius and nsample of ``model``'s encoder, as the kernel
+    paths take them: the model's own function, whatever its config. The
+    kernels keep 128 neighbours, so :func:`ops.sa_stage` refuses another
+    nsample rather than compute another function."""
+    enc = model.point_cloud_encoder
+    return tuple(dict(radius=sa.radius, nsample=sa.nsample) for sa in (enc.sa0, enc.sa1))
 
 
 def _dense(lin, x, cdt):
@@ -103,12 +109,12 @@ def fused_policy_apply(
     ``fast_grouping=W`` (nonzero) switches SA0 to the relaxed chunk-window
     kernel: each centroid searches only its W nearest chunks of 128 points.
     ``weights`` is ``sa_weights(model, compute_dtype)``, made here when not
-    given. ``sa_impl`` other than ``"v8"`` (the TPU's v3/v5 kernels) and
-    ``bf16_cloud`` are not ported yet.
+    given. ``sa_impl="v3"`` runs both exact stages with the count==0 rule of
+    centroids off the cloud (point 0's row), "v5" and "v8" with that of
+    cloud members, as ``mpinets_tpu/model/fused.py:119-139`` does; FPS
+    centroids are cloud members, so all three give the same value.
+    ``bf16_cloud`` is not ported yet.
     """
-    if sa_impl != "v8":
-        raise NotImplementedError(
-            f"sa_impl={sa_impl!r}: the v3/v5 kernels are ROADMAP.md queue B item 3")
     if bf16_cloud:
         raise NotImplementedError(
             "bf16_cloud: bf16 coordinates through the SA kernels are not ported "
@@ -118,14 +124,17 @@ def fused_policy_apply(
     xyz = point_cloud[..., :3].contiguous()
     feat = point_cloud[..., 3:].contiguous()
 
+    exact = dict(impl=sa_impl, centroids_in_cloud=sa_impl in ("v5", "v8"))
+    sa0, sa1 = stage_sizes(model)
+
     _, cent0 = ops.furthest_point_sample_with_coords(xyz, sa_npoints[0])
     if fast_grouping:
-        f0, _ = ops.sa_stage_fast(xyz, feat, cent0, w0, **SA0, window=fast_grouping)
+        f0, _ = ops.sa_stage_fast(xyz, feat, cent0, w0, **sa0, window=fast_grouping)
     else:
-        f0, _ = ops.sa_stage(xyz, feat, cent0, w0, **SA0)
+        f0, _ = ops.sa_stage(xyz, feat, cent0, w0, **sa0, **exact)
 
     _, cent1 = ops.furthest_point_sample_with_coords(cent0, sa_npoints[1])
-    f1, _ = ops.sa_stage(cent0, f0, cent1, w1, **SA1)
+    f1, _ = ops.sa_stage(cent0, f0, cent1, w1, **sa1, **exact)
     return tail(model, cent1, f1, q_norm, cdt)
 
 

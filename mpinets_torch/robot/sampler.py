@@ -1,8 +1,8 @@
 """Batched robot surface-point sampling under FK.
 
 Port of ``mpinets_tpu/robot/sampler.py`` (``bank_point_cloud``,
-``sample_robot_points``, ``sample_end_effector``; the fixed loss cloud comes
-with the train slice). Each bank's points are link-local and grouped by
+``sample_robot_points``, ``fixed_robot_points``, ``sample_end_effector``).
+Each bank's points are link-local and grouped by
 frame, so one batched FK gives the whole world-frame bank with one small
 product per frame; the 2048-point rollout resample is then a gather.
 """
@@ -32,20 +32,23 @@ def _group_slices(frames: np.ndarray):
 
 
 @functools.lru_cache(maxsize=None)
-def _prepared_bank(num_points: int, seed: int):
+def _prepared_bank(bank_key: str, num_points: int, seed: int):
     """Returns (points_sorted [P, 3] float32, groups [(frame, a, b)])."""
-    bank = point_banks.full_robot_bank(num_points, seed)
+    bank = {
+        "full": point_banks.full_robot_bank,
+        "loss": point_banks.loss_bank,
+    }[bank_key](num_points, seed)
     order, groups = _group_slices(bank.frames)
     return bank.points[order], groups
 
 
 def bank_point_cloud(
-    q: torch.Tensor, num_bank_points: int = point_banks.DEFAULT_BANK_SIZE,
-    seed: int = 0,
+    q: torch.Tensor, bank_key: str = "full",
+    num_bank_points: int = point_banks.DEFAULT_BANK_SIZE, seed: int = 0,
 ) -> torch.Tensor:
-    """World-frame positions of every full-robot bank point.
-    q: [..., 7] -> [..., P, 3]."""
-    points, groups = _prepared_bank(num_bank_points, seed)
+    """World-frame positions of every point of a bank ("full": the robot
+    surface bank; "loss": the fixed loss bank). q: [..., 7] -> [..., P, 3]."""
+    points, groups = _prepared_bank(bank_key, num_bank_points, seed)
     rots, transs = kinematics.fk_frames(q)
     pts = torch.as_tensor(points, dtype=q.dtype, device=q.device)
     chunks = []
@@ -69,13 +72,22 @@ def sample_robot_points(
     the bank. ``indices`` ([..., num_points] int, into the bank) replaces
     the draw from ``generator``, so a caller can replay given draws.
     """
-    world = bank_point_cloud(q)
+    world = bank_point_cloud(q, "full")
     if indices is None:
         indices = torch.randint(
             0, world.shape[-2], q.shape[:-1] + (num_points,),
             generator=generator, device=q.device,
         )
     return torch.take_along_dim(world, indices[..., None].long(), dim=-2)
+
+
+def fixed_robot_points(q: torch.Tensor, num_points: int = 1024) -> torch.Tensor:
+    """Deterministic fixed-point cloud for the point-match loss
+    (``FrankaSampler(num_fixed_points=1024, use_cache=True,
+    with_base_link=False)``, reference ``loss.py:141-147``): the k-th output
+    point is always the same link-local point, so the pointwise MSE between
+    two configurations is meaningful. q: [..., 7] -> [..., num_points, 3]."""
+    return bank_point_cloud(q, "loss", num_points, 1)
 
 
 @functools.lru_cache(maxsize=None)

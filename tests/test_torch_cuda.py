@@ -7,8 +7,10 @@ machine without it:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -p no:cacheprovider
 
 Tolerances: FPS indices and coordinates exact (the distance code is never
-contracted into FMAs); SA index arrays exact; SA features 1e-5 in f32 (sums
-in another order) and 1e-2 in bf16 (one bf16 ulp of an activation).
+contracted into FMAs); SA index arrays and raw blocks exact; SA features
+1e-5 in f32 (sums in another order) and 1e-2 in bf16 (one bf16 ulp of an
+activation); the fused train path's f32 parameter gradients, kernels
+against plain versions, atol 2e-5 + 1e-4 max|g| (``test_fused_train.py``).
 """
 
 import numpy as np
@@ -16,6 +18,8 @@ import pytest
 import torch
 
 from mpinets_torch.kernels import ops
+from mpinets_torch.model import fused_train
+from mpinets_torch.model.policy import MotionPolicyNetwork
 
 
 @pytest.fixture
@@ -71,6 +75,8 @@ def test_sa_kernel_matches_plain(cuda, fast, dtype):
     counter = "sa_fast" if fast else "sa"
     before = ops.LAUNCHES[counter]
     before_shape = ops.LAUNCHES_BY_SHAPE[(counter, 700, 37)]
+    if not fast:
+        kw.update(impl="v8", centroids_in_cloud=True)
     feats, idx = fn(*_stage_args(args, cuda, dtype), **kw)
     torch.cuda.synchronize()
     assert ops.LAUNCHES[counter] == before + 1
@@ -97,3 +103,88 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ops.furthest_point_sample_with_coords(torch.zeros(1, 9000, 3, device=cuda), 10)
     with pytest.raises(ValueError):
         ops.sa_stage(args[0].cpu(), *args[1:], radius=0.2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sa_kernel_raw_block_matches_plain(cuda, dtype):
+    """The raw block: bit-equal to the plain version's; launches count as sa_raw."""
+    args = _sa_inputs(13)
+    kw = dict(radius=0.2, impl="v8", centroids_in_cloud=True, return_raw=True)
+    before = ops.LAUNCHES["sa_raw"]
+    feats, idx, raw = ops.sa_stage(*_stage_args(args, cuda, dtype), **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["sa_raw"] == before + 1
+    ref, ref_idx, ref_raw = ops.sa_stage(*_stage_args(args, "cpu", dtype), **kw)
+    np.testing.assert_array_equal(idx.cpu().numpy(), ref_idx.numpy())
+    assert torch.equal(raw.cpu(), ref_raw)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    np.testing.assert_allclose(feats.cpu().numpy(), ref.numpy(), atol=tol, rtol=tol)
+    # the inference launch of the same stage is unchanged by the raw output
+    plain = ops.sa_stage(*_stage_args(args, cuda, dtype), radius=0.2, impl="v8",
+                         centroids_in_cloud=True)
+    assert torch.equal(plain[0], feats) and torch.equal(plain[1], idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["v3", "v5"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sa_kernel_off_cloud_matches_plain(cuda, impl, dtype):
+    """Centroids off the cloud (one with no neighbour: point 0's row)."""
+    args = _sa_inputs(14)
+    args[2][:, 2:9] += 0.011
+    kw = dict(radius=0.2, impl=impl, centroids_in_cloud=False)
+    before = ops.LAUNCHES["sa_v3"]
+    feats, idx = ops.sa_stage(*_stage_args(args, cuda, dtype), **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["sa_v3"] == before + 1
+    ref, ref_idx = ops.sa_stage(*_stage_args(args, "cpu", dtype), **kw)
+    np.testing.assert_array_equal(idx.cpu().numpy(), ref_idx.numpy())
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    np.testing.assert_allclose(feats.cpu().numpy(), ref.numpy(), atol=tol, rtol=tol)
+    v8 = ops.sa_stage(*_stage_args(args, cuda, dtype), radius=0.2, impl="v8",
+                      centroids_in_cloud=True)
+    v5 = ops.sa_stage(*_stage_args(args, cuda, dtype), radius=0.2, impl="v5",
+                      centroids_in_cloud=True)
+    assert torch.equal(v5[0], v8[0]) and torch.equal(v5[1], v8[1])
+    assert not torch.equal(feats[0, 1], v8[0][0, 1])  # the count==0 centroid
+
+
+def _plain_ops(monkeypatch):
+    """Route the train path's kernel launches to the plain versions, on any
+    device. ``sa_stage`` stays: its mapping of ``impl`` and
+    ``centroids_in_cloud`` onto the kernel is part of what is compared."""
+    monkeypatch.setattr(ops, "furthest_point_sample_with_coords",
+                        lambda xyz, npoint, impl="v1": ops.fps_plain(xyz, npoint))
+    monkeypatch.setattr(ops, "sa_kernel", ops.sa_plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sa_impl", ["v8", "v3"])
+def test_fused_train_kernels_match_plain_gradients(cuda, monkeypatch, sa_impl):
+    rng = np.random.default_rng(15)
+    pc = torch.from_numpy(np.concatenate([rng.uniform(-0.7, 0.7, (2, 640, 3)),
+                                          rng.integers(0, 3, (2, 640, 1))], -1)
+                          .astype(np.float32)).to(cuda)
+    q = torch.from_numpy(rng.uniform(-1, 1, (2, 7)).astype(np.float32)).to(cuda)
+    model = MotionPolicyNetwork(sa_npoints=(64, 16), device=cuda,
+                                generator=torch.Generator().manual_seed(15))
+    apply = fused_train.make_fused_train_apply(torch.float32, sa_npoints=(64, 16),
+                                               sa_impl=sa_impl)
+
+    def grads():
+        model.zero_grad()
+        torch.sin(apply(model, pc, q)).sum().backward()
+        return {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    counter = "sa_raw" if sa_impl == "v8" else "sa_v3"
+    before = ops.LAUNCHES[counter]
+    kernel = grads()
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[counter] == before + 2
+    _plain_ops(monkeypatch)
+    plain = grads()
+    for k, ref in plain.items():
+        scale = max(ref.abs().max().item(), 1e-6)
+        np.testing.assert_allclose(kernel[k].cpu().numpy(), ref.cpu().numpy(),
+                                   atol=2e-5 + 1e-4 * scale, err_msg=k)

@@ -10,7 +10,10 @@ MLP) and its Pallas kernels in interpret mode, at the shapes and radii of
 * exact SA (v8): identical index sets, f32 features within 1e-5;
 * fast SA (f1): identical index sets, f32 features within 1e-5;
 * bf16: identical index sets, features within 1e-2 (a sum in another
-  order can move a bf16 activation by one ulp, 2^-8 relative).
+  order can move a bf16 activation by one ulp, 2^-8 relative);
+* the v8 raw block (``return_raw``): identical idx arrays and raw blocks;
+* v3 / v5 off the cloud (a centroid with no neighbour takes point 0's
+  layer-1 row): identical idx arrays, features 1e-5 (f32) / 1e-2 (bf16).
 
 ``tests/test_torch_cuda.py`` holds each CUDA kernel against its plain
 version on the card.
@@ -119,7 +122,7 @@ def test_ball_query_matches_oracle(radius):
 def test_sa_stage_matches_oracle_and_pallas(radius):
     xyz, feat, cent, weights = _sa_inputs(3)
     feats, idx = ops.sa_stage(_t(xyz), _t(feat), _t(cent), _weights(weights, torch.float32),
-                              radius=radius)
+                              radius=radius, impl="v8", centroids_in_cloud=True)
     ref, ref_idx = _oracle(xyz, feat, cent, weights, radius)
     np.testing.assert_array_equal(idx.numpy(), ref_idx)
     np.testing.assert_allclose(feats.numpy(), ref, atol=1e-5, rtol=1e-5)
@@ -133,7 +136,7 @@ def test_sa_stage_matches_oracle_and_pallas(radius):
 def test_sa_stage_bf16_matches_pallas():
     xyz, feat, cent, weights = _sa_inputs(4)
     feats, idx = ops.sa_stage(_t(xyz), _t(feat), _t(cent), _weights(weights, torch.bfloat16),
-                              radius=0.3)
+                              radius=0.3, impl="v8", centroids_in_cloud=True)
     pf, pidx = pallas_ops.sa_stage(
         *map(jnp.asarray, (xyz, feat, cent, *weights)), radius=0.3, nsample=128,
         compute_dtype=jnp.bfloat16, interpret=True, impl="v8", centroids_in_cloud=True)
@@ -206,7 +209,8 @@ def test_wrappers_reject_bad_input_and_count_only_launches():
     args = (_t(xyz), _t(feat), _t(cent), _weights(weights, torch.bfloat16))
     ops.sa_stage(*args, radius=0.3)
     ops.furthest_point_sample_with_coords(_t(xyz), 8)
-    assert ops.LAUNCHES == {"fps": 0, "sa": 0, "sa_fast": 0}  # plain versions launch nothing
+    assert ops.LAUNCHES == dict.fromkeys(("fps", "sa", "sa_raw", "sa_v3", "sa_fast"), 0)
+    # (plain versions launch nothing)
     assert not ops.LAUNCHES_BY_SHAPE
     with pytest.raises(ValueError):
         ops.furthest_point_sample_with_coords(_t(xyz), 8, impl="v3")
@@ -220,6 +224,12 @@ def test_wrappers_reject_bad_input_and_count_only_launches():
         ops.sa_stage(_t(xyz).to("meta"), *args[1:], radius=0.3)
     with pytest.raises(ValueError, match="CUDA"):
         ops.sa_kernel(*args, radius=0.3)
+    with pytest.raises(ValueError, match="cloud members"):
+        ops.sa_stage(*args, radius=0.3, impl="v8")
+    with pytest.raises(ValueError, match="v8"):
+        ops.sa_stage(*args, radius=0.3, impl="v5", centroids_in_cloud=True, return_raw=True)
+    with pytest.raises(ValueError, match="impl"):
+        ops.sa_stage(*args, radius=0.3, impl="v4")
 
 
 def test_prepared_weights_are_rounded_and_padded():
@@ -232,7 +242,87 @@ def test_prepared_weights_are_rounded_and_padded():
     assert w.w1.shape == (8, 32) and w.w1.is_contiguous()
     assert torch.equal(w.w1[:5], rnd(w1)) and not w.w1[5:].any()
     assert torch.equal(w.w1_xyz, w1[:3]) and torch.equal(w.b1, b1)
+    assert torch.equal(w.w1_f32, w1)
     assert torch.equal(w.w2, rnd(w2)) and torch.equal(w.w3, rnd(w3))
     assert torch.equal(w.b2, b2) and torch.equal(w.b3, b3)
     assert w.compute_dtype == torch.bfloat16
     assert all(t.dtype == torch.float32 for t in w.tensors)
+
+
+# ---------------------------------------------------------------------------
+# The v8 raw block, and v3 / v5 with centroids off the cloud
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sa_stage_raw_block_matches_pallas(dtype):
+    """idx arrays and raw blocks identical; each raw row is the cloud row of
+    its idx up to the count, zero after it."""
+    xyz, feat, cent, weights = _sa_inputs(11, n=256, c=1)
+    feats, idx, raw = ops.sa_stage(_t(xyz), _t(feat), _t(cent), _weights(weights, dtype),
+                                   radius=0.2, impl="v8", centroids_in_cloud=True,
+                                   return_raw=True)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    pf, pidx, praw = pallas_ops.sa_stage(
+        *map(jnp.asarray, (xyz, feat, cent, *weights)), radius=0.2, nsample=128,
+        compute_dtype=jdt, interpret=True, impl="v8", centroids_in_cloud=True, return_raw=True)
+    np.testing.assert_array_equal(idx.numpy(), _np(pidx))
+    assert raw.dtype == torch.float32 and raw.shape == (2, 16, 128, 4)
+    np.testing.assert_array_equal(raw.numpy(), _np(praw))
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    np.testing.assert_allclose(feats.numpy(), _np(pf), atol=tol, rtol=tol)
+    rows = np.concatenate([xyz, feat], -1)
+    count = (((xyz[:, None] - cent[:, :, None]) ** 2).sum(-1) < 0.04).sum(-1)
+    for b, s in np.ndindex(count.shape):
+        k = min(count[b, s], 128)
+        np.testing.assert_array_equal(raw[b, s, :k].numpy(), rows[b, idx[b, s, :k].numpy()])
+        assert not raw[b, s, k:].any()
+
+
+def _off_cloud(seed):
+    """Centroids off the cloud: one with no point in its ball (count 0, the
+    point-0 branch) and others moved off their points."""
+    xyz, feat, cent, weights = _sa_inputs(seed, n=256, c=2)
+    cent[:, 1:6] += np.float32(0.013)
+    cent[0, 3] = (5.0, 5.0, 5.0)
+    cent[1, 7] = (-4.0, 0.0, 2.0)
+    return xyz, feat, cent, weights
+
+
+@pytest.mark.parametrize("impl, dtype", [("v3", torch.float32), ("v5", torch.float32),
+                                         ("v3", torch.bfloat16)])
+def test_sa_stage_off_cloud_matches_pallas(impl, dtype):
+    xyz, feat, cent, weights = _off_cloud(12)
+    feats, idx = ops.sa_stage(_t(xyz), _t(feat), _t(cent), _weights(weights, dtype),
+                              radius=0.2, impl=impl, centroids_in_cloud=False)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    pf, pidx = pallas_ops.sa_stage(
+        *map(jnp.asarray, (xyz, feat, cent, *weights)), radius=0.2, nsample=128,
+        compute_dtype=jdt, interpret=True, impl=impl, centroids_in_cloud=False)
+    np.testing.assert_array_equal(idx.numpy(), _np(pidx))
+    assert (idx[0, 3] == 0).all() and (idx[1, 7] == 0).all()
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    np.testing.assert_allclose(feats.numpy(), _np(pf), atol=tol, rtol=tol)
+    if dtype == torch.float32:
+        # count 0: point 0's row, recentred on the centroid, through the MLP
+        w1, b1, w2, b2, w3, b3 = map(torch.from_numpy, weights)
+        pts0 = torch.from_numpy(np.concatenate([xyz[0, 0] - cent[0, 3], feat[0, 0]]))
+        h = torch.relu(torch.relu(torch.relu(pts0 @ w1 + b1) @ w2 + b2) @ w3 + b3)
+        np.testing.assert_allclose(feats[0, 3].numpy(), h.numpy(), atol=1e-5)
+
+
+def test_sa_stage_impls_agree_on_the_cloud():
+    """With cloud members as centroids v3, v5 and v8 compute the same stage;
+    off the cloud v5 with centroids_in_cloud=True is v8 exactly."""
+    xyz, feat, cent, weights = _sa_inputs(13)
+    args = (_t(xyz), _t(feat), _t(cent), _weights(weights, torch.bfloat16))
+    v8 = ops.sa_stage(*args, radius=0.3, impl="v8", centroids_in_cloud=True)
+    for impl, in_cloud in (("v3", False), ("v5", False), ("v5", True), ("v3", True)):
+        out = ops.sa_stage(*args, radius=0.3, impl=impl, centroids_in_cloud=in_cloud)
+        assert torch.equal(out[0], v8[0]) and torch.equal(out[1], v8[1])
+    xyz, feat, cent, weights = _off_cloud(14)
+    args = (_t(xyz), _t(feat), _t(cent), _weights(weights, torch.bfloat16))
+    v8 = ops.sa_stage(*args, radius=0.2, impl="v8", centroids_in_cloud=True)
+    v5 = ops.sa_stage(*args, radius=0.2, impl="v5", centroids_in_cloud=True)
+    v3 = ops.sa_stage(*args, radius=0.2, impl="v3", centroids_in_cloud=True)
+    assert torch.equal(v5[0], v8[0]) and torch.equal(v5[1], v8[1])
+    assert not torch.equal(v3[0][0, 3], v8[0][0, 3])  # v3 ignores the flag

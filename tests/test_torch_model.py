@@ -88,6 +88,20 @@ def test_fused_matches_policy(flax_and_port, fast_grouping):
     assert torch.equal(apply(model, pc, q), ours)
 
 
+def test_fused_follows_the_models_radii(flax_and_port):
+    """The kernel path takes each stage's radius from the model, not from
+    the reference sizes."""
+    _, _, model = flax_and_port
+    wide = MotionPolicyNetwork(sa_npoints=NPOINTS, sa_radii=(0.15, 0.45), device="cpu").eval()
+    wide.load_state_dict(model.state_dict())
+    pc, q = (torch.from_numpy(a) for a in _inputs(5))
+    with torch.no_grad():
+        ref = wide(pc, q)
+        assert not torch.allclose(ref, model(pc, q), atol=1e-4)
+    ours = fused_policy_apply(wide, pc, q, compute_dtype=torch.float32, sa_npoints=NPOINTS)
+    np.testing.assert_allclose(ours.numpy(), ref.numpy(), atol=2e-5, rtol=1e-4)
+
+
 def test_fused_apply_follows_weight_changes(flax_and_port):
     """make_fused_apply prepares the SA weights once, and again after the
     model's weights change in place."""
@@ -114,10 +128,14 @@ def test_fused_bf16_close_to_f32(flax_and_port):
 
 
 def test_unported_knobs_raise(flax_and_port):
+    """bf16_cloud is not ported; the v3/v5 stages are (same value as v8 on
+    FPS centroids, which are cloud members)."""
     _, _, model = flax_and_port
     pc, q = (torch.from_numpy(a) for a in _inputs(5))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_policy_apply(model, pc, q, sa_npoints=NPOINTS, sa_impl="v5")
+    v8 = fused_policy_apply(model, pc, q, compute_dtype=torch.float32, sa_npoints=NPOINTS)
+    for sa_impl in ("v3", "v5"):
+        assert torch.equal(fused_policy_apply(model, pc, q, compute_dtype=torch.float32,
+                                              sa_npoints=NPOINTS, sa_impl=sa_impl), v8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fused_policy_apply(model, pc, q, sa_npoints=NPOINTS, bf16_cloud=True)
 

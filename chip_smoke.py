@@ -3,11 +3,15 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``mpinets_torch/csrc/``, holds each kernel
-against its plain PyTorch version at the main path's shapes -- FPS, the
-exact SA stage, its raw-block output (train path), its off-cloud branch
-(``sa_impl="v3"``) and the chunk-window SA0 -- and the train path's
-parameter gradients, kernels against plain versions. It then checks the
+Builds the CUDA kernels from ``mpinets_torch/csrc/`` (logging each SA
+instantiation's registers, spills and launch plan, and counting the
+tensor-core ``HMMA`` instructions in the built SASS where the toolkit has
+``cuobjdump``), holds each kernel against its plain PyTorch version at the
+main path's shapes -- FPS, the exact SA stage, its raw-block output (train
+path), its off-cloud branch (``sa_impl="v3"``) and the chunk-window SA0,
+and every SA variant on a cloud whose neighbour counts cross the bf16
+kernel's 16-row tiles -- and the train path's parameter gradients, kernels
+against plain versions. It then checks the
 full-width forward against the plain paths and drives, with random weights
 made from a seed, each path a user calls: the planning server
 (``cli.serve.Planner``, exact grouping), the batched closed-loop rollout
@@ -49,6 +53,7 @@ TRAIN_MIN_S = 5.0         # seconds of timed train steps per batch size and rate
 TRAIN_CHUNK = 5           # train steps per timed chunk
 GRAD_B = 8                # batch of the train-gradient check
 PLAIN_ROWS = 16           # rows per plain-version call, to bound its memory
+SPREAD = (0, 1, 15, 16, 17, 31, 127, 128, 200)  # neighbours per centroid, across the tiles
 F32_TOL = 1e-5            # kernel vs plain, f32: sums in another order
 BF16_TOL = 1e-2           # kernel vs plain, bf16: a 1-ulp flip of a bf16 activation
 FWD_F32_TOL = 2e-5        # full forward, kernel path vs plain policy, f32
@@ -189,6 +194,80 @@ def sa_data_ops(idx, n, chunks, p, widths):
     c1, c2, c3 = widths
     per_row = 2 * (p * c1 + c1 * c2 + c2 * c3)
     return 9.0 * float(scanned.sum()), float(kept.sum()) * per_row
+
+
+def kernel_resources(log_text):
+    """Per kernel instantiation in an ``nvcc -Xptxas -v`` log: registers,
+    spill stores and loads, stack frame bytes. -> {short name: dict}."""
+    import re
+
+    out, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            t = re.search(r"([a-z]+_kernel(?:_mma)?)(?:ILb([01])ELb([01])E)?", m.group(1))
+            full = m.group(1)
+            name = full if t is None else t.group(1) + (
+                f"<raw={t.group(2)}, point0={t.group(3)}>" if t.group(2) is not None
+                else "<bf16>" if "bfloat16" in full else "<f32>" if "IfE" in full else "")
+            out.setdefault(name, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def sass_hmma(lib):
+    """HMMA instructions per kernel in a built library's SASS (``cuobjdump
+    -sass``), or None where the toolkit has no cuobjdump."""
+    import re
+    import shutil
+    from pathlib import Path
+
+    from mpinets_torch.kernels import ops
+
+    tool = Path(ops._nvcc()).parent / "cuobjdump"
+    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    if not tool:
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and re.search(r"\bHMMA\b", line):
+            counts[name] += 1
+    return counts
+
+
+def spread_cloud(gen, radius, c, b, dev):
+    """A cloud whose centroid i, at (i, 0, 0), has SPREAD[i] points inside
+    its ball (0.9 of the radius at most), shuffled among 400 points far from
+    every ball; features uniform in [0, 1). -> (xyz, features, centroids)."""
+    import torch
+
+    cent = torch.tensor([(float(i), 0.0, 0.0) for i in range(len(SPREAD))], device=dev)
+    rows = []
+    for _ in range(b):
+        parts = [torch.rand(400, 3, generator=gen, device=dev) * 10 - 5
+                 + torch.tensor([0.0, 0.0, 10.0], device=dev)]
+        for centre, k in zip(cent, SPREAD):
+            d = torch.randn(k, 3, generator=gen, device=dev)
+            r = 0.9 * radius * torch.rand(k, 1, generator=gen, device=dev) ** (1 / 3)
+            parts.append(centre + d / d.norm(dim=1, keepdim=True) * r)
+        pts = torch.cat(parts)
+        rows.append(pts[torch.randperm(len(pts), generator=gen, device=dev)])
+    xyz = torch.stack(rows).contiguous()
+    feat = torch.rand(b, xyz.shape[1], c, generator=gen, device=dev)
+    return xyz, feat, cent.expand(b, -1, -1).contiguous()
 
 
 def bound(nbytes, f32_flops, mlp_flops=0.0, mlp_peak=BF16_FLOPS):
@@ -377,15 +456,32 @@ def main() -> int:
     t0 = time.perf_counter()
     built = ops.build()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s wall, per source {built}")
+    resources = {}
     for name in ops.SOURCES:
-        for line in (ops.BUILD_DIR / f"{name}.log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        resources.update(kernel_resources((ops.BUILD_DIR / f"{name}.log").read_text()))
+    for kname, res in resources.items():
+        log(f"  {kname}: {res}")
+    if resources.get("sa_kernel_mma<raw=0, point0=0>", {}).get("spill_stores", 1):
+        raise AssertionError("the inference tensor-core SA instantiation spills (or is missing)")
+    hmma = sass_hmma(ops._target("sa"))
+    if hmma is None:
+        log("cuobjdump not found: HMMA count skipped")
+    else:
+        log(f"HMMA instructions in the SASS of sa.cu, per kernel: {hmma}")
+        mma_kernels = {k: v for k, v in hmma.items() if "sa_kernel_mma" in k}
+        if len(mma_kernels) != 3 or not all(mma_kernels.values()):
+            raise AssertionError(f"sa_kernel_mma instantiations without HMMA: {hmma}")
 
     gen = torch.Generator().manual_seed(SEED)
     model = MotionPolicyNetwork(compute_dtype=bf16, device="cpu", generator=gen).to(dev).eval()
     sa_w = {dt: fused.sa_weights(model, dt) for dt in (f32, bf16)}
     stage_radii = [size["radius"] for size in fused.stage_sizes(model)]
+    for stage, c_in in ((0, 1), (1, 64)):  # sa_fast launches what sa does
+        for dt in (f32, bf16):
+            for variant, in_cloud, raw in (("sa", True, False), ("sa_raw", True, True),
+                                           ("sa_v3", False, False)):
+                plan = ops.sa_launch_plan(sa_w[dt][stage], c_in, in_cloud, raw)
+                log(f"  launch plan SA{stage} {str(dt)[6:]} {variant}: {plan}")
     ggen = torch.Generator(dev).manual_seed(SEED)
     problem = random_problem_batch(ggen, B, device=dev)
     with torch.no_grad():
@@ -508,6 +604,17 @@ def main() -> int:
                 raise AssertionError(f"{label} {dtype}: the count==0 branch did not fire")
         log(f"{label}: impl v5 (centroids_in_cloud) equals v8 bit for bit")
         check_sa(f"sa_v3 {label}", "sa_v3", args, stage, widths, bf16, in_cloud=False)
+
+    phase("SA kernel, neighbour counts across the 16-row tiles (SA0, SA1 widths)")
+    sgen = torch.Generator(dev).manual_seed(SEED + 6)
+    for label, stage, c_in, widths in (("SA0", 0, 1, (64, 64, 64)), ("SA1", 1, 64, (128, 128, 256))):
+        spread = spread_cloud(sgen, stage_radii[stage], c_in, 4, dev)
+        whole = lambda xs, cs: ops.chunk_window(xs, cs, -(-xs.shape[1] // 128))
+        for dtype in (f32, bf16):
+            for kernel, kw in (("sa", {}), ("sa_raw", dict(raw=True)),
+                               ("sa_v3", dict(in_cloud=False)), ("sa_fast", dict(chunks_fn=whole))):
+                check_sa(f"{kernel} {label} counts {SPREAD}", kernel, spread, stage, widths, dtype,
+                         timed=False, **kw)
 
     # ---- 2. full-width forward: kernel path against the plain paths -------
     phase(f"full-width forward, B={B}")

@@ -15,7 +15,9 @@ Port of ``mpinets_tpu/kernels/pallas_ops.py``:
   package keeps it in XLA.
 
 The SA stages take their MLP as :class:`SAWeights`, rounded and laid out
-for the kernel once by :func:`prepare_sa_weights`.
+for the kernel once by :func:`prepare_sa_weights`. Under bf16 the kernel
+runs the MLP on the tensor cores from the bf16 copies there
+(:func:`sa_launch_plan` says which kernel a stage gets).
 
 A wrapper given CPU tensors computes the plain version, which repeats the
 kernel's arithmetic (the raw-row layer 1 with the folded recentring bias,
@@ -70,7 +72,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "mpn_fps": [_P, _I, _I, _I, _I, _P, _P, _P],
-    "mpn_sa": [_P] * 4 + [_I] + [_P] * 7 + [_I] * 8 + [ctypes.c_float, _I, _I] + [_P] * 4,
+    "mpn_sa": [_P] * 4 + [_I] + [_P] * 10 + [_I] * 8 + [ctypes.c_float, _I, _I] + [_P] * 4,
+    "mpn_sa_plan": [_I] * 8 + [_P] * 3,
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -255,7 +258,8 @@ def chunk_window(xyz: torch.Tensor, centroids: torch.Tensor, window: int) -> tor
 
 class SAWeights(NamedTuple):
     """One SA stage's 3-layer MLP as the kernel reads it: Dense weights
-    [in, out], contiguous f32 on the stage's device."""
+    [in, out], contiguous f32 on the stage's device; under bf16 also the
+    tensor-core kernel's copies, which the plain version never reads."""
 
     w1: torch.Tensor       # [kp, C1] rounded to the compute type; zero rows past 3 + C
     w1_f32: torch.Tensor   # [3 + C, C1] unrounded: the recentring bias and the count==0 row
@@ -265,10 +269,20 @@ class SAWeights(NamedTuple):
     w3: torch.Tensor       # [C2, C3] rounded
     b3: torch.Tensor       # [C3]
     compute_dtype: torch.dtype
+    # bf16 only: W^T [out, in] in bf16, zero-padded to multiples of 16
+    w1t: Optional[torch.Tensor] = None   # [ceil16(C1), ceil16(3 + C)]
+    w2t: Optional[torch.Tensor] = None   # [ceil16(C2), ceil16(C1)]
+    w3t: Optional[torch.Tensor] = None   # [ceil16(C3), ceil16(C2)]
 
     @property
     def tensors(self) -> Tuple[torch.Tensor, ...]:
+        """The f32 tensors (what the plain version reads)."""
         return tuple(self[:7])
+
+    @property
+    def mma_tensors(self) -> Tuple[torch.Tensor, ...]:
+        """The tensor-core kernel's bf16 copies; empty under f32."""
+        return () if self.w1t is None else (self.w1t, self.w2t, self.w3t)
 
     @property
     def w1_xyz(self) -> torch.Tensor:
@@ -282,10 +296,23 @@ def _check_rows(weights: SAWeights, c: int) -> None:
                          f"({weights.w1.shape[0]} padded input rows), features give 3 + {c}")
 
 
+def _ceil16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def _mma_copy(w: torch.Tensor) -> torch.Tensor:
+    """Dense [in, out] -> the tensor-core kernel's bf16 W^T [out, in], both
+    dimensions zero-padded to multiples of 16 (the mma's k and n steps)."""
+    k, n = w.shape
+    wt = w.t().to(torch.bfloat16)
+    return torch.nn.functional.pad(wt, (0, _ceil16(k) - k, 0, _ceil16(n) - n)).contiguous()
+
+
 @torch.no_grad()
 def prepare_sa_weights(w1, b1, w2, b2, w3, b3, compute_dtype=torch.bfloat16) -> SAWeights:
     """Round and lay out one stage's MLP weights (Dense [in, out], f32) for
-    the SA stages; done once per model and compute type, not per call."""
+    the SA stages; done once per model and compute type, not per call.
+    Under bf16 this also makes the tensor-core kernel's W^T copies."""
     rnd = _rounder(compute_dtype)
     k, c1 = w1.shape
     c2, c3 = w2.shape[1], w3.shape[1]
@@ -295,10 +322,11 @@ def prepare_sa_weights(w1, b1, w2, b2, w3, b3, compute_dtype=torch.bfloat16) -> 
     if k < 3:
         raise ValueError(f"w1 takes 3 + C >= 3 input rows, got {k}")
     kp = -(-k // 4) * 4
+    mma = (_mma_copy(w1), _mma_copy(w2), _mma_copy(w3)) if compute_dtype == torch.bfloat16 else ()
     return SAWeights(
         torch.nn.functional.pad(rnd(w1), (0, 0, 0, kp - k)).contiguous(),
         w1.contiguous(), b1.contiguous(), rnd(w2).contiguous(), b2.contiguous(),
-        rnd(w3).contiguous(), b3.contiguous(), compute_dtype,
+        rnd(w3).contiguous(), b3.contiguous(), compute_dtype, *mma,
     )
 
 
@@ -375,7 +403,7 @@ def sa_kernel(xyz, features, centroids, weights: SAWeights, radius: float,
     and ``return_raw`` as in :func:`sa_plain`. What :func:`sa_stage` and
     :func:`sa_stage_fast` launch."""
     extra = () if chunks is None else (chunks,)
-    if _on_cpu(xyz, features, centroids, *weights.tensors, *extra):
+    if _on_cpu(xyz, features, centroids, *weights.tensors, *weights.mma_tensors, *extra):
         raise ValueError("sa_kernel takes CUDA tensors (sa_stage runs the plain version)")
     if return_raw and not (in_cloud and chunks is None):
         raise ValueError("the raw block is an output of the exact in-cloud (v8) scan only")
@@ -391,6 +419,11 @@ def sa_kernel(xyz, features, centroids, weights: SAWeights, radius: float,
     if chunks is not None:
         _check(chunks, "chunks", (torch.int32,), (b, s, None))
     _check_rows(w, c)
+    if w.compute_dtype == torch.bfloat16 and not w.mma_tensors:
+        raise ValueError("bf16 weights need their tensor-core copies (prepare_sa_weights)")
+    for t, name, shape in zip(w.mma_tensors, ("w1t", "w2t", "w3t"),
+                              ((c1, 3 + c), (c2, c1), (c3, c2))):
+        _check(t, name, (torch.bfloat16,), tuple(_ceil16(d) for d in shape))
     if c1 % 4 or c2 % 4 or b < 1 or s < 1:
         raise ValueError(f"the SA kernel takes C1, C2 multiples of 4 and B, S >= 1; "
                          f"got C1={c1}, C2={c2}, B={b}, S={s}")
@@ -404,7 +437,8 @@ def sa_kernel(xyz, features, centroids, weights: SAWeights, radius: float,
         xyz.data_ptr(), features.data_ptr(), centroids.data_ptr(),
         None if chunks is None else chunks.data_ptr(), window,
         w.w1.data_ptr(), w.w1_f32.data_ptr(), w.b1.data_ptr(), w.w2.data_ptr(),
-        w.b2.data_ptr(), w.w3.data_ptr(), w.b3.data_ptr(), b, n, s, c, kp, c1, c2, c3,
+        w.b2.data_ptr(), w.w3.data_ptr(), w.b3.data_ptr(),
+        *([t.data_ptr() for t in w.mma_tensors] or [None] * 3), b, n, s, c, kp, c1, c2, c3,
         float(torch.tensor(radius * radius, dtype=torch.float32)),
         int(w.compute_dtype == torch.bfloat16), int(in_cloud), out.data_ptr(), idx.data_ptr(),
         None if raw is None else raw.data_ptr(),
@@ -417,6 +451,22 @@ def sa_kernel(xyz, features, centroids, weights: SAWeights, radius: float,
         name = "sa" if in_cloud else "sa_v3"
     _count(name, n, s)
     return (out, idx, raw) if return_raw else (out, idx)
+
+
+def sa_launch_plan(weights: SAWeights, c: int, in_cloud: bool = True,
+                   raw: bool = False) -> Dict[str, int]:
+    """The launch :func:`sa_kernel` makes for these weights and C input
+    features on the current CUDA device: ``mma`` 1 for the tensor-core
+    kernel (bf16), 0 for the CUDA-core one; its dynamic shared memory in
+    bytes; and the blocks of it that fit on one SM."""
+    kp, c1 = weights.w1.shape
+    c2, c3 = weights.w2.shape[1], weights.w3.shape[1]
+    out = [ctypes.c_int() for _ in range(3)]
+    rc = _library("sa").mpn_sa_plan(c, kp, c1, c2, c3, int(weights.compute_dtype == torch.bfloat16),
+                                    int(in_cloud), int(raw), *map(ctypes.byref, out))
+    if rc != 0:
+        raise RuntimeError(f"mpn_sa_plan failed: CUDA error {rc}")
+    return dict(zip(("mma", "smem_bytes", "blocks_per_sm"), (v.value for v in out)))
 
 
 def sa_stage(xyz, features, centroids, weights: SAWeights, radius: float,

@@ -234,7 +234,9 @@ def test_wrappers_reject_bad_input_and_count_only_launches():
 
 def test_prepared_weights_are_rounded_and_padded():
     """Layer 1 padded to a multiple of 4 rows with zeros; w1..w3 rounded to
-    the compute type; the recentring weights and the biases left in f32."""
+    the compute type; the recentring weights and the biases left in f32;
+    under bf16 the tensor-core copies: the rounded weights transposed to
+    [out, in] and zero-padded to multiples of 16, bf16."""
     _, _, _, weights = _sa_inputs(10, c=2)
     w = _weights(weights, torch.bfloat16)
     w1, b1, w2, b2, w3, b3 = map(_t, weights)
@@ -247,6 +249,36 @@ def test_prepared_weights_are_rounded_and_padded():
     assert torch.equal(w.b2, b2) and torch.equal(w.b3, b3)
     assert w.compute_dtype == torch.bfloat16
     assert all(t.dtype == torch.float32 for t in w.tensors)
+    assert [tuple(t.shape) for t in w.mma_tensors] == [(32, 16), (32, 32), (48, 32)]
+    for t, ref in zip(w.mma_tensors, (w1, w2, w3)):
+        assert t.dtype == torch.bfloat16 and t.is_contiguous()
+        k, n = ref.shape
+        assert torch.equal(t[:n, :k].float(), rnd(ref).t()) and not t[n:].any()
+        assert not t[:, k:].any()
+    assert _weights(weights, torch.float32).mma_tensors == ()
+
+
+@pytest.mark.parametrize("c, widths", [(3, (36, 20, 40)), (64, (128, 128, 256))])
+def test_mma_copies_pad_any_width_and_plain_never_reads_them(c, widths):
+    """The tensor-core copies for widths that are not multiples of 16 (and
+    the SA1 widths): zero-padded to [ceil16(out), ceil16(in)]; the plain
+    version gives the same result with the copies poisoned."""
+    xyz, feat, cent, weights = _sa_inputs(16, n=256, s=8, c=c, widths=widths)
+    w = _weights(weights, torch.bfloat16)
+    up = lambda d: -(-d // 16) * 16
+    dims = (3 + c,) + widths
+    for i, t in enumerate(w.mma_tensors):
+        assert t.shape == (up(dims[i + 1]), up(dims[i])), i
+        assert torch.equal(t[:dims[i + 1], :dims[i]].float(),
+                           _t(weights[2 * i]).to(torch.bfloat16).float().t())
+        assert not t[dims[i + 1]:].any() and not t[:, dims[i]:].any()
+    args = (_t(xyz), _t(feat), _t(cent))
+    ref = ops.sa_stage(*args, w, radius=0.3, impl="v8", centroids_in_cloud=True)
+    poisoned = w._replace(**{k: torch.full_like(getattr(w, k), float("nan"))
+                             for k in ("w1t", "w2t", "w3t")})
+    out = ops.sa_stage(*args, poisoned, radius=0.3, impl="v8", centroids_in_cloud=True)
+    assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+    assert torch.isfinite(ref[0]).all()
 
 
 # ---------------------------------------------------------------------------

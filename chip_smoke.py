@@ -21,14 +21,21 @@ made from a seed, each path a user calls: the planning server
 B=10 and B=64: steps, validation, checkpoints, a restore, then at least
 ``TRAIN_MIN_S`` seconds of timed steps in chunks, reported as the median
 and range of the chunks' rates; and once at a small cloud, which runs the
-kernels as well).
+kernels as well). Last it drives the TPU probe session
+(``mpinets_torch.probes.session``, what ``python -m mpinets_torch.probes``
+runs): each probe kernel of ``csrc/probes.cu`` against its plain version at
+the scripts' full shapes and on the scan's edge cases, then timed by the
+scripts' long-minus-short loop, with SA0 exact timed beside the scan stages.
 
 Any failed phase raises, so the script exits non-zero. It also exits
 non-zero, printing no result, when there is no CUDA device or when the
 ``mpinets_torch`` package is not beside it. Launch counts are set to 0
 before each main path and read after it. The line before the last is a
 JSON object with one entry per kernel and shape: ``ms`` times the kernel
-alone, ``launches`` counts that kernel at that shape over the main paths.
+alone, ``launches`` counts that kernel at that shape over the main paths;
+a probe kernel has one entry per timed probe of the session (a scan mode
+stands for every TPU script probe that computes the same function), its
+launches in the timed runs of the probe session.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -70,9 +77,8 @@ FWD_BF16_TOL = 2e-2       # full forward, kernel path vs plain path, bf16 (relat
 GRAD_ATOL, GRAD_RTOL = 2e-5, 1e-4
 BF16_GRAD_FACTOR = 2 ** 0.5
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM, f32 CUDA cores, bf16 tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
+# H100 SXM peak of the bf16 tensor cores (NVIDIA data sheet, dense); those of
+# HBM and the f32 CUDA cores are mpinets_torch.probes.session's.
 BF16_FLOPS = 989e12
 
 TPU_SOURCES = {
@@ -82,9 +88,16 @@ TPU_SOURCES = {
     "sa_v3": "mpinets_tpu/kernels/pallas_ops.py:267",
     "sa_fast": "mpinets_tpu/kernels/pallas_ops.py:989",
 }
+# The TPU probe kernels. One CUDA kernel serves several TPU probes, so each
+# probe's record from mpinets_torch/probes/session.py names the script lines
+# it replaces (scripts/onchip_r3b.py:120, onchip_r3c.py:184, onchip_r3d.py:69
+# and :175, onchip_r4a.py:71 and :129) and the scripts' measurements it
+# stands for.
+PROBE_KERNELS = ("probe_scan", "probe_micro", "probe_wide", "probe_scratch")
 CUDA_SOURCES = {"fps": "mpinets_torch/csrc/fps.cu", "sa": "mpinets_torch/csrc/sa.cu",
                 "sa_raw": "mpinets_torch/csrc/sa.cu", "sa_v3": "mpinets_torch/csrc/sa.cu",
-                "sa_fast": "mpinets_torch/csrc/sa.cu"}
+                "sa_fast": "mpinets_torch/csrc/sa.cu",
+                **dict.fromkeys(PROBE_KERNELS, "mpinets_torch/csrc/probes.cu")}
 
 
 def log(*args):
@@ -205,10 +218,12 @@ def kernel_resources(log_text):
     for line in log_text.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
         if m:
-            t = re.search(r"([a-z]+_kernel(?:_mma)?)(?:ILb([01])ELb([01])E)?", m.group(1))
+            t = re.search(r"([a-z][a-z_]*?_kernel(?:_mma)?)(?:ILb([01])ELb([01])E|ILi(\d+)E)?",
+                          m.group(1))
             full = m.group(1)
             name = full if t is None else t.group(1) + (
                 f"<raw={t.group(2)}, point0={t.group(3)}>" if t.group(2) is not None
+                else f"<{t.group(4)}>" if t.group(4) is not None
                 else "<bf16>" if "bfloat16" in full else "<f32>" if "IfE" in full else "")
             out.setdefault(name, {})
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -271,6 +286,8 @@ def spread_cloud(gen, radius, c, b, dev):
 
 
 def bound(nbytes, f32_flops, mlp_flops=0.0, mlp_peak=BF16_FLOPS):
+    from mpinets_torch.probes.session import F32_FLOPS, HBM_BYTES_PER_S
+
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = f32_flops / F32_FLOPS + mlp_flops / mlp_peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -895,10 +912,33 @@ def main() -> int:
         count_path("trainer, small cloud", ("fps", "sa_raw", "sa"))
         if small.step != 10 or not all(torch.isfinite(p).all() for p in small.model.parameters()):
             raise AssertionError(f"trainer, small cloud: step {small.step} or non-finite weights")
+    # ---- 5. the TPU probe session ----------------------------------------
+    from mpinets_torch.probes import session as probe_session
+
+    phase("TPU probes: kernels vs plain, and their times (probes.session, full shape)")
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    records = probe_session.run(dev, seed=SEED)   # raises if a kernel differs from plain
+    torch.cuda.synchronize()
+    parity = {r["name"]: r for r in records if r["kind"] == "parity"}
+    probe_times = [r for r in records if r["kind"] == "time" and r["kernel"] in PROBE_KERNELS]
+    # the timed runs are the path; the launches of the parity checks do not count
+    timed_launches = Counter()
+    for r in probe_times:
+        timed_launches[r["kernel"]] += r["launches"]
+    log(f"TPU probe session: launches in the timed runs {dict(timed_launches)}")
+    for k in PROBE_KERNELS:
+        if not timed_launches[k]:
+            raise AssertionError(f"TPU probe session: kernel {k} was not launched")
+    sa0_exact = next(r for r in records if r["kind"] == "time" and r["kernel"] == "sa")
+    stages = {r["name"]: r["ms"] for r in probe_times if r["kernel"] == "probe_scan"}
+    log(f"SA0 scan stages at B=256, N=6272, S=512, r=0.05 (ms): {stages}; SA0 exact (v8, bf16) "
+        f"{sa0_exact['ms']:.4f} ms [{smi}]; the phase took {time.perf_counter() - t0:.1f} s")
+
     by_shape = dict(main_launches)
     log(f"main-path launches by (kernel, N, S): {by_shape}")
 
-    # ---- 5. per-kernel line ------------------------------------------------
+    # ---- 6. per-kernel line ------------------------------------------------
     kernels = []
     for name, r in report.items():
         k = r["kernel"]
@@ -909,6 +949,18 @@ def main() -> int:
             "replaces": TPU_SOURCES[k], "launches": by_shape.get((k, *r["shape"]), 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+        })
+    for r in probe_times:
+        if not r["launches"]:
+            raise AssertionError(f"probe {r['name']} was not launched in the probe session")
+        kernels.append({
+            "name": f"{r['kernel']} {r['name']}", "route": "cuda",
+            "source": CUDA_SOURCES[r["kernel"]],
+            "replaces": r["replaces"], "launches": r["launches"],
+            "max_abs_err": parity[r["name"]]["max_abs_err"], "ms": r["ms"],
+            "plain_ms": parity[r["name"]]["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "stands_for": r["stands_for"],
         })
     log(json.dumps({"env_steps_per_s_median": rate, "env_steps_per_s": rates, "batch": B,
                     "fast_grouping": FAST_W, "compute_dtype": "bfloat16",

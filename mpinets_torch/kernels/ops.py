@@ -25,7 +25,9 @@ and the bf16 rounding points of the TPU kernels). Given CUDA tensors it
 launches the kernel or raises; it never falls back. Each launch adds one to
 :data:`LAUNCHES` and to :data:`LAUNCHES_BY_SHAPE`, under the name of the
 kernel's variant: ``sa`` (exact, in-cloud), ``sa_raw`` (exact, with the raw
-block), ``sa_v3`` (exact, off-cloud) or ``sa_fast``.
+block), ``sa_v3`` (exact, off-cloud) or ``sa_fast``. The TPU probe kernels
+(``csrc/probes.cu``, wrapped in :mod:`mpinets_torch.probes`) count as
+``probe_scan``, ``probe_micro``, ``probe_wide`` and ``probe_scratch``.
 
 The kernels are built at first use with ``nvcc`` into shared libraries with
 a plain C interface, loaded through ``ctypes``, under :data:`BUILD_DIR`.
@@ -51,7 +53,7 @@ from mpinets_torch.kernels import pointnet
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = {"fps": "fps.cu", "sa": "sa.cu"}
+SOURCES = {"fps": "fps.cu", "sa": "sa.cu", "probes": "probes.cu"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -64,7 +66,9 @@ CHUNK = 128
 FPS_MAX_POINTS = 8192
 
 #: Kernel launches since the last :func:`reset_launches`, by wrapper.
-LAUNCHES: Dict[str, int] = {"fps": 0, "sa": 0, "sa_raw": 0, "sa_v3": 0, "sa_fast": 0}
+LAUNCHES: Dict[str, int] = {"fps": 0, "sa": 0, "sa_raw": 0, "sa_v3": 0, "sa_fast": 0,
+                            "probe_scan": 0, "probe_micro": 0, "probe_wide": 0,
+                            "probe_scratch": 0}
 #: The same launches by (wrapper, N, S): cloud size and samples or centroids.
 LAUNCHES_BY_SHAPE: Counter = Counter()
 
@@ -74,6 +78,10 @@ _SIGNATURES = {
     "mpn_fps": [_P, _I, _I, _I, _I, _P, _P, _P],
     "mpn_sa": [_P] * 4 + [_I] + [_P] * 10 + [_I] * 8 + [ctypes.c_float, _I, _I] + [_P] * 4,
     "mpn_sa_plan": [_I] * 8 + [_P] * 3,
+    "mpn_probe_scan": [_P] * 3 + [_I] * 3 + [ctypes.c_float, _I, _P, _P],
+    "mpn_probe_micro": [_P, _P] + [_I] * 4 + [_P, _P, _P],
+    "mpn_probe_wide": [_P, _P] + [_I] * 4 + [_P, _P],
+    "mpn_probe_scratch": [_I, _P, _P],
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -12,7 +12,9 @@ contracted into FMAs); SA index arrays and raw blocks exact; SA features
 1e-5 in f32 (sums in another order) and 1e-2 in bf16 (one bf16 ulp of an
 activation; relative to max(1, max|f|) in the tensor-core cases); the fused
 train path's f32 parameter gradients, kernels against plain versions,
-atol 2e-5 + 1e-4 max|g| (``test_fused_train.py``).
+atol 2e-5 + 1e-4 max|g| (``test_fused_train.py``); the TPU probe kernels
+(``csrc/probes.cu``) bit-equal to their plain versions, which round and sum
+as the kernels do.
 """
 
 import numpy as np
@@ -22,6 +24,7 @@ import torch
 from mpinets_torch.kernels import ops
 from mpinets_torch.model import fused_train
 from mpinets_torch.model.policy import MotionPolicyNetwork
+from mpinets_torch.probes import design, micro, scan, session
 
 
 @pytest.fixture
@@ -336,3 +339,65 @@ def test_fused_train_kernels_match_plain_gradients(cuda, monkeypatch, sa_impl):
         scale = max(ref.abs().max().item(), 1e-6)
         np.testing.assert_allclose(kernel[k].cpu().numpy(), ref.cpu().numpy(),
                                    atol=2e-5 + 1e-4 * scale, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# The TPU probe kernels (csrc/probes.cu): the cases of test_torch_probes.py,
+# then every probe of the session at the scripts' full shapes
+# ---------------------------------------------------------------------------
+
+def _check_probe(kernel, run, plain):
+    """One launch, counted under ``kernel``, bit-equal to the plain version."""
+    before = ops.LAUNCHES[kernel]
+    out = run()
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[kernel] == before + 1
+    ref = plain()
+    assert out.shape == ref.shape
+    assert torch.equal(out.cpu(), ref.cpu()), (out.cpu() - ref.cpu()).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", scan.SCAN_MODES)
+def test_scan_probe_matches_plain(cuda, mode):
+    """Edge cases: 150 neighbours, none, an empty chunk, points ulps from the sphere."""
+    args = [torch.from_numpy(a) for a in session.edge_scan_inputs(5)]
+    _check_probe("probe_scan", lambda: scan.scan_probe(*(a.to(cuda) for a in args), 0.05, mode),
+                 lambda: scan.scan_probe(*args, 0.05, mode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reps", [8, 32])
+@pytest.mark.parametrize("op", micro.MICRO_OPS)
+def test_micro_probe_matches_plain(cuda, op, reps):
+    rng = np.random.default_rng(6)
+    a = torch.from_numpy(rng.uniform(0, 1, (196, 128)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, 128, (196, 128)).astype(np.int32))
+    _check_probe("probe_micro", lambda: micro.micro_probe(a.to(cuda), idx.to(cuda), op, reps, 98),
+                 lambda: micro.micro_probe(a, idx, op, reps, 98))
+    if op == "bd_matmul":   # every row's work, through the group sums
+        _check_probe("probe_micro",
+                     lambda: micro.micro_probe(a.to(cuda), idx.to(cuda), op, reps, 98, True)[1],
+                     lambda: micro.bd_matmul_plain(a, reps)[1])
+
+
+@pytest.mark.cuda
+def test_wide_and_scratch_probes_match_plain(cuda):
+    rng = np.random.default_rng(7)
+    tab = torch.from_numpy(rng.normal(size=(2, 224, 128)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, 128, (2, 224, 2048)).astype(np.int32))
+    _check_probe("probe_wide", lambda: design.wide_gather(tab.to(cuda), idx.to(cuda)),
+                 lambda: design.wide_gather(tab, idx))
+    _check_probe("probe_scratch", lambda: design.scratch_probe(4, cuda),
+                 lambda: design.scratch_probe(4, "cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["probe_scan", "probe_micro", "probe_wide", "probe_scratch"])
+def test_probe_kernels_at_full_shape(cuda, kernel):
+    """Every probe of the session for this kernel, at the scripts' shapes."""
+    probes = [p for p in session.make_probes(cuda) if p.kernel == kernel]
+    assert probes
+    for probe in probes:
+        rec = session.check(probe)
+        assert rec["ok"], rec

@@ -209,7 +209,8 @@ def test_wrappers_reject_bad_input_and_count_only_launches():
     args = (_t(xyz), _t(feat), _t(cent), _weights(weights, torch.bfloat16))
     ops.sa_stage(*args, radius=0.3)
     ops.furthest_point_sample_with_coords(_t(xyz), 8)
-    assert ops.LAUNCHES == dict.fromkeys(("fps", "sa", "sa_raw", "sa_v3", "sa_fast"), 0)
+    assert ops.LAUNCHES == dict.fromkeys(("fps", "sa", "sa_raw", "sa_v3", "sa_fast", "probe_scan",
+                                          "probe_micro", "probe_wide", "probe_scratch"), 0)
     # (plain versions launch nothing)
     assert not ops.LAUNCHES_BY_SHAPE
     with pytest.raises(ValueError):

@@ -7,11 +7,13 @@ Builds the CUDA kernels from ``mpinets_torch/csrc/`` (logging each SA
 instantiation's registers, spills and launch plan, and counting the
 tensor-core ``HMMA`` instructions in the built SASS where the toolkit has
 ``cuobjdump``), holds each kernel against its plain PyTorch version at the
-main path's shapes -- FPS, the exact SA stage, its raw-block output (train
-path), its off-cloud branch (``sa_impl="v3"``) and the chunk-window SA0,
-and every SA variant on a cloud whose neighbour counts cross the bf16
-kernel's 16-row tiles -- and the train path's parameter gradients, kernels
-against plain versions. It then checks the
+main path's shapes -- FPS, the exact ball query (``sa_select``, also at
+B=1), the exact SA stage (the ball query, then the MLP kernel reading its
+selection), its raw-block output (train path), its off-cloud branch
+(``sa_impl="v3"``) and the chunk-window SA0, and every SA variant on a
+cloud whose neighbour counts cross the bf16 kernel's 16-row tiles -- and
+the train path's parameter gradients, kernels against plain versions. It
+then checks the
 full-width forward against the plain paths and drives, with random weights
 made from a seed, each path a user calls: the planning server
 (``cli.serve.Planner``, exact grouping), the batched closed-loop rollout
@@ -26,13 +28,19 @@ kernels as well). Last it drives the TPU probe session
 runs): each probe kernel of ``csrc/probes.cu`` against its plain version at
 the scripts' full shapes and on the scan's edge cases, then timed by the
 scripts' long-minus-short loop, with SA0 exact timed beside the scan stages.
+Then it times every kernel at each (batch, cloud, centroids) shape the main
+paths launched it at, against its plain version there, with its bound from
+that input's data, and prints launches x (ms - bound ms) summed over each
+kernel's shapes.
 
 Any failed phase raises, so the script exits non-zero. It also exits
 non-zero, printing no result, when there is no CUDA device or when the
 ``mpinets_torch`` package is not beside it. Launch counts are set to 0
 before each main path and read after it. The line before the last is a
-JSON object with one entry per kernel and shape: ``ms`` times the kernel
-alone, ``launches`` counts that kernel at that shape over the main paths;
+JSON object with one entry per kernel and (B, N, S) the main paths launched
+it at: ``ms`` times the kernel alone (an SA MLP kernel on the exact path
+reading a given selection), ``launches`` counts that kernel at that shape
+over the main paths;
 a probe kernel has one entry per timed probe of the session (a scan mode
 stands for every TPU script probe that computes the same function), its
 launches in the timed runs of the probe session.
@@ -83,6 +91,7 @@ BF16_FLOPS = 989e12
 
 TPU_SOURCES = {
     "fps": "mpinets_tpu/kernels/pallas_ops.py:32",
+    "sa_select": "mpinets_tpu/kernels/pallas_ops.py:749",   # its scan, :814-891
     "sa": "mpinets_tpu/kernels/pallas_ops.py:749",
     "sa_raw": "mpinets_tpu/kernels/pallas_ops.py:749",
     "sa_v3": "mpinets_tpu/kernels/pallas_ops.py:267",
@@ -94,7 +103,8 @@ TPU_SOURCES = {
 # and :175, onchip_r4a.py:71 and :129) and the scripts' measurements it
 # stands for.
 PROBE_KERNELS = ("probe_scan", "probe_micro", "probe_wide", "probe_scratch")
-CUDA_SOURCES = {"fps": "mpinets_torch/csrc/fps.cu", "sa": "mpinets_torch/csrc/sa.cu",
+CUDA_SOURCES = {"fps": "mpinets_torch/csrc/fps.cu", "sa_select": "mpinets_torch/csrc/sa.cu",
+                "sa": "mpinets_torch/csrc/sa.cu",
                 "sa_raw": "mpinets_torch/csrc/sa.cu", "sa_v3": "mpinets_torch/csrc/sa.cu",
                 "sa_fast": "mpinets_torch/csrc/sa.cu",
                 **dict.fromkeys(PROBE_KERNELS, "mpinets_torch/csrc/probes.cu")}
@@ -110,12 +120,16 @@ def phase(name):
 
 def cuda_ms(fn, reps):
     """Mean milliseconds of fn() over reps launches, by CUDA events, after
-    one warm-up call."""
+    one warm-up call. The timed calls are queued behind a device busy-wait,
+    so a kernel shorter than its host call is timed on the device."""
     import torch
+
+    from mpinets_torch.probes.session import SLEEP_CYCLES
 
     fn()
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -218,12 +232,13 @@ def kernel_resources(log_text):
     for line in log_text.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
         if m:
-            t = re.search(r"([a-z][a-z_]*?_kernel(?:_mma)?)(?:ILb([01])ELb([01])E|ILi(\d+)E)?",
-                          m.group(1))
+            t = re.search(r"([a-z][a-z_]*?_kernel(?:_mma)?)"
+                          r"(?:ILb([01])ELb([01])ELb([01])E|ILi(\d+)E)?", m.group(1))
             full = m.group(1)
             name = full if t is None else t.group(1) + (
-                f"<raw={t.group(2)}, point0={t.group(3)}>" if t.group(2) is not None
-                else f"<{t.group(4)}>" if t.group(4) is not None
+                f"<raw={t.group(2)}, point0={t.group(3)}, fast={t.group(4)}>"
+                if t.group(2) is not None
+                else f"<{t.group(5)}>" if t.group(5) is not None
                 else "<bf16>" if "bfloat16" in full else "<f32>" if "IfE" in full else "")
             out.setdefault(name, {})
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -294,7 +309,7 @@ def bound(nbytes, f32_flops, mlp_flops=0.0, mlp_peak=BF16_FLOPS):
 
 
 KERNEL_GROUPS = (  # device-time buckets of a profile, by kernel name
-    ("SA kernels", ("sa_kernel",)),
+    ("SA kernels", ("sa_kernel", "sa_select")),
     ("FPS kernel", ("fps_kernel",)),
     ("matrix products (cuBLAS)", ("gemm", "gemv", "cutlass", "xmma", "cublas")),
 )
@@ -422,6 +437,108 @@ def profile_train_layers(state, apply, make_batch, steps=3):
         log(f"  {name:40s} device {dev_ms:8.3f} ms/step  host {host_ms:8.3f} ms/step")
 
 
+# The clouds the main paths run: (points, SA0 centroids, SA1 centroids) at
+# the reference widths, and the small trainer's cloud.
+CLOUDS = ((6272, 512, 128), (64 + 96 + 32, 16, 8))
+
+
+def stage_inputs(cache, b, cloud, xyz, feat, weights, radii):
+    """The kernel path's SA0 and SA1 inputs for the first ``b`` rows and
+    ``cloud[0]`` points of the assembled cloud: ((xyz, feat, centroids,
+    selection) per stage), made once per (b, cloud) and kept in ``cache``."""
+    from mpinets_torch.kernels import ops
+
+    if (b, cloud) not in cache:
+        n0, s0, s1 = cloud
+        x0, f0 = xyz[:b, :n0].contiguous(), feat[:b, :n0].contiguous()
+        c0 = ops.furthest_point_sample_with_coords(x0, s0)[1]
+        sel0 = ops.sa_select(x0, c0, radii[0])
+        h0 = ops.sa_kernel(x0, f0, c0, weights[0], radii[0], selection=sel0)[0]
+        c1 = ops.furthest_point_sample_with_coords(c0, s1)[1]
+        cache[b, cloud] = ((x0, f0, c0, sel0), (c0, h0, c1, ops.sa_select(c0, c1, radii[1])))
+    return cache[b, cloud]
+
+
+def time_at_shape(key, launches, cache, xyz, feat, weights, radii, smi):
+    """Kernel ``key[0]`` at batch, cloud and centroids ``key[1:]`` (bf16):
+    against its plain version (FPS and ball-query indices equal, MLP
+    features within BF16_TOL x max(1, max|f|)), timed with its plain
+    version, and its bound from this input's data. The SA MLP kernels
+    (sa, sa_raw, sa_v3) read the ball query's selection, as on the exact
+    path; sa_fast scans its window. -> the kernels-line entry."""
+    import torch
+
+    from mpinets_torch.kernels import ops
+
+    k, b, n, s = key
+    cloud, stage = next(((c, st) for c in CLOUDS for st, shape in enumerate((c[:2], c[1:]))
+                         if shape == (n, s)), (None, None))
+    if cloud is None:
+        raise AssertionError(f"{key}: no stage of the clouds {CLOUDS} has this shape")
+    xs, fs, cs, sel = stage_inputs(cache, b, cloud, xyz, feat, weights, radii)[stage]
+    w, radius = weights[stage], radii[stage]
+    c1, c2, c3 = w.w1.shape[1], w.w2.shape[1], w.w3.shape[1]
+    per_row = 2.0 * ((3 + fs.shape[-1]) * c1 + c1 * c2 + c2 * c3)
+    w_bytes = 4 * sum(t.numel() for t in w.tensors)
+    mlp_ops = f32_ops = 0.0
+    err = 0.0
+    if k == "fps":
+        run = lambda: ops.furthest_point_sample_with_coords(xs, s)
+        plain = lambda: by_rows(lambda t: ops.fps_plain(t, s), xs)
+        out, ref = run(), plain()
+        same = torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+        nbytes, f32_ops = b * n * 12 + b * s * 16, 9.0 * (s - 1) * n * b
+    elif k == "sa_select":
+        run = lambda: ops.sa_select(xs, cs, radius)
+        plain = lambda: by_rows(lambda x_, c_: ops.sa_select_plain(x_, c_, radius), xs, cs)
+        out, ref = run(), plain()
+        same = torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+        idx, count = out
+        scanned = torch.where(count == 128, idx[..., 127].long() + 1, n)   # to the 128th hit
+        nbytes = 4 * (xs.numel() + cs.numel() + idx.numel() + count.numel())
+        f32_ops = 9.0 * float(scanned.sum())
+    else:
+        if k == "sa_fast":
+            chunks = ops.chunk_window(xs, cs, FAST_W)
+            run = lambda: ops.sa_kernel(xs, fs, cs, w, radius, chunks)
+            plain = lambda: by_rows(lambda x_, f_, c_, ch_: ops.sa_plain(x_, f_, c_, w, radius, ch_),
+                                    xs, fs, cs, chunks)
+            out, ref = run(), plain()
+            same = torch.equal(out[1], ref[1])
+            f32_ops, mlp_ops = sa_data_ops(out[1], n, chunks, 3 + fs.shape[-1], (c1, c2, c3))
+            nbytes = 4 * (xs.numel() + fs.numel() + cs.numel() + chunks.numel()
+                          + b * s * (c3 + 128)) + w_bytes
+        else:   # the MLP kernel alone, reading the selection
+            in_cloud, raw = k != "sa_v3", k == "sa_raw"
+            run = lambda: ops.sa_kernel(xs, fs, cs, w, radius, None, in_cloud, raw, selection=sel)
+            plain = lambda: by_rows(
+                lambda x_, f_, c_, i_, n_: ops.sa_mlp_plain(x_, f_, c_, w, i_, n_, in_cloud, raw),
+                xs, fs, cs, *sel)
+            out, ref = run(), plain()
+            if raw:
+                same, out, ref = torch.equal(out[2], ref[1]), out, (ref[0],)
+            else:
+                same, ref = True, (ref,)
+            mlp_ops = float(sel[1].clamp(min=1).sum()) * per_row
+            nbytes = 4 * (xs.numel() + fs.numel() + cs.numel() + sel[0].numel() + sel[1].numel()
+                          + b * s * c3 + (b * s * 128 * (3 + fs.shape[-1]) if raw else 0)) + w_bytes
+        err = (out[0] - ref[0]).abs().max().item()
+        scale = max(1.0, ref[0].abs().max().item())
+        if not err <= BF16_TOL * scale:
+            raise AssertionError(f"{key}: feature error {err} > {BF16_TOL * scale}")
+    torch.cuda.synchronize()
+    if not same:
+        raise AssertionError(f"{key}: indices (or the raw block) differ from the plain version")
+    ms = cuda_ms(run, 5)
+    plain_ms = cuda_ms(plain, 1)
+    bnd, by = bound(nbytes, f32_ops, mlp_ops)
+    log(f"{k} B={b} N={n} S={s}: {launches} launches; kernel {ms:.4f} ms, plain {plain_ms:.3f}"
+        f" ms, bound {bnd:.4f} ms ({by}), max |err| {err:.3e} [{smi}]")
+    return {"name": f"{k} B={b} N={n} S={s}", "route": "cuda", "source": CUDA_SOURCES[k],
+            "replaces": TPU_SOURCES[k], "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by, "library_ms": None}
+
+
 def main() -> int:
     import torch
 
@@ -478,27 +595,40 @@ def main() -> int:
         resources.update(kernel_resources((ops.BUILD_DIR / f"{name}.log").read_text()))
     for kname, res in resources.items():
         log(f"  {kname}: {res}")
-    if resources.get("sa_kernel_mma<raw=0, point0=0>", {}).get("spill_stores", 1):
-        raise AssertionError("the inference tensor-core SA instantiation spills (or is missing)")
+    # the inference tensor-core MLP (exact and fast) and every ball-query
+    # instantiation: no spill
+    for kname in ("sa_kernel_mma<raw=0, point0=0, fast=0>",
+                  "sa_kernel_mma<raw=0, point0=0, fast=1>",
+                  *(f"sa_select_kernel<{cpw}>" for cpw in (1, 2, 4))):
+        res = resources.get(kname, {})
+        if res.get("spill_stores", 1) or res.get("spill_loads", 1):
+            raise AssertionError(f"{kname} spills (or is missing): {res}")
     hmma = sass_hmma(ops._target("sa"))
     if hmma is None:
         log("cuobjdump not found: HMMA count skipped")
     else:
         log(f"HMMA instructions in the SASS of sa.cu, per kernel: {hmma}")
         mma_kernels = {k: v for k, v in hmma.items() if "sa_kernel_mma" in k}
-        if len(mma_kernels) != 3 or not all(mma_kernels.values()):
+        if len(mma_kernels) != 4 or not all(mma_kernels.values()):
             raise AssertionError(f"sa_kernel_mma instantiations without HMMA: {hmma}")
 
     gen = torch.Generator().manual_seed(SEED)
     model = MotionPolicyNetwork(compute_dtype=bf16, device="cpu", generator=gen).to(dev).eval()
     sa_w = {dt: fused.sa_weights(model, dt) for dt in (f32, bf16)}
     stage_radii = [size["radius"] for size in fused.stage_sizes(model)]
-    for stage, c_in in ((0, 1), (1, 64)):  # sa_fast launches what sa does
+    for stage, c_in in ((0, 1), (1, 64)):
         for dt in (f32, bf16):
-            for variant, in_cloud, raw in (("sa", True, False), ("sa_raw", True, True),
-                                           ("sa_v3", False, False)):
-                plan = ops.sa_launch_plan(sa_w[dt][stage], c_in, in_cloud, raw)
+            for variant, in_cloud, raw, fast in (("sa", True, False, False),
+                                                 ("sa_raw", True, True, False),
+                                                 ("sa_v3", False, False, False),
+                                                 ("sa_fast", True, False, True)):
+                if fast and stage:
+                    continue
+                plan = ops.sa_launch_plan(sa_w[dt][stage], c_in, in_cloud, raw, fast)
                 log(f"  launch plan SA{stage} {str(dt)[6:]} {variant}: {plan}")
+    for b_ in (1, 3, 10, 64, B):
+        for n_, s_ in ((6272, 512), (512, 128)):
+            log(f"  launch plan sa_select B={b_} N={n_} S={s_}: {ops.sa_select_plan(b_, n_, s_)}")
     ggen = torch.Generator(dev).manual_seed(SEED)
     problem = random_problem_batch(ggen, B, device=dev)
     with torch.no_grad():
@@ -507,7 +637,6 @@ def main() -> int:
     xyz = pc[..., :3].contiguous()
     feat = pc[..., 3:].contiguous()
     q_norm = normalize_franka_joints(problem.q0)
-    report = {}
 
     # ---- 1. each kernel against its plain version -------------------------
     phase("FPS kernel vs plain")
@@ -523,20 +652,34 @@ def main() -> int:
                 bad = (idx != ref_idx).any(-1).sum().item()
                 raise AssertionError(f"FPS {label} impl={impl}: {bad} rows differ from plain")
         cent[label] = coords
-        ms = cuda_ms(lambda: ops.furthest_point_sample_with_coords(pts, npoint), 5)
-        plain_ms = cuda_ms(lambda: by_rows(lambda t: ops.fps_plain(t, npoint), pts), 1)
-        b_, n_ = pts.shape[:2]
-        bnd, by = bound(b_ * n_ * 12 + b_ * npoint * 16, 9.0 * (npoint - 1) * n_ * b_)
-        report[f"fps {n_}->{npoint}"] = dict(kernel="fps", shape=(n_, npoint), max_abs_err=0.0,
-                                               ms=ms, plain_ms=plain_ms, bound_ms=bnd,
-                                               bound_by=by)
-        log(f"FPS [{b_},{n_}]->{npoint}: idx equal (v1, v2); kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, bound {bnd:.4f} ms ({by})")
+        log(f"FPS [{pts.shape[0]},{pts.shape[1]}]->{npoint}: idx equal (v1, v2)")
 
-    def check_sa(label, kernel, args, stage, widths, dtype, chunks_fn=None, in_cloud=True,
-                 raw=False, timed=True):
+    phase("ball-query kernel vs plain (SA0, SA1; B=256 and B=1; the count spread)")
+    sgen = torch.Generator(dev).manual_seed(SEED + 6)
+    spread = {stage: spread_cloud(sgen, stage_radii[stage], c_in, 4, dev)
+              for stage, c_in in ((0, 1), (1, 64))}
+    for label, xs, cs, radius in (
+            ("SA0", xyz, cent["SA0"], stage_radii[0]), ("SA1", cent["SA0"], cent["SA1"],
+                                                        stage_radii[1]),
+            ("SA0 B=1", xyz[:1], cent["SA0"][:1], stage_radii[0]),
+            ("SA1 B=1", cent["SA0"][:1], cent["SA1"][:1], stage_radii[1]),
+            *((f"SA{st} counts {SPREAD}", spread[st][0], spread[st][2], stage_radii[st])
+              for st in (0, 1))):
+        idx, count = ops.sa_select(xs, cs, radius)
+        torch.cuda.synchronize()
+        ref_idx, ref_count = by_rows(lambda x_, c_: ops.sa_select_plain(x_, c_, radius), xs, cs)
+        if not (torch.equal(idx, ref_idx) and torch.equal(count, ref_count)):
+            bad = ((idx != ref_idx).any(-1) | (count != ref_count)).sum().item()
+            raise AssertionError(f"sa_select {label}: {bad} centroids differ from plain")
+        log(f"sa_select {label} [{xs.shape[0]},{xs.shape[1]}]->{cs.shape[1]}: idx and count "
+            f"equal; kept per centroid: mean {count.float().mean().item():.2f}, "
+            f"{(count == 128).float().mean().item():.3f} of centroids at 128")
+
+    def check_sa(label, args, stage, dtype, chunks_fn=None, in_cloud=True, raw=False,
+                 timed=True):
         """One SA kernel variant against its plain version: idx arrays equal,
-        raw blocks bit-equal, features within the gate; timed in bf16."""
+        raw blocks bit-equal, features within the gate; timed in bf16 (the
+        exact grouping also with the ball query and the MLP launched apart)."""
         radius = stage_radii[stage]
         weights = sa_w[dtype][stage]
         chunks = None if chunks_fn is None else chunks_fn(*args[::2])
@@ -565,22 +708,16 @@ def main() -> int:
         if dtype != bf16 or not timed:
             return out
         xs, fs, cs = args
-        b_, n_, c_ = fs.shape
-        s_ = cs.shape[1]
-        # the kernel alone: window and weights made outside the timed calls
+        # the kernels alone: window and weights made outside the timed calls
         ms = cuda_ms(run, 3)
-        plain_ms = cuda_ms(lambda: by_rows(plain, *args), 1)
-        f32_ops, mlp_ops = sa_data_ops(out[1], n_, chunks, 3 + c_, widths)
-        nbytes = 4 * (xs.numel() + fs.numel() + cs.numel()
-                      + sum(t.numel() for t in weights.tensors)
-                      + (0 if chunks is None else chunks.numel())
-                      + b_ * s_ * widths[2] + b_ * s_ * 128
-                      + (b_ * s_ * 128 * (3 + c_) if raw else 0))
-        bnd, by = bound(nbytes, f32_ops, mlp_ops)
-        report[label] = dict(kernel=kernel, shape=(n_, s_), max_abs_err=err, ms=ms,
-                             plain_ms=plain_ms, bound_ms=bnd, bound_by=by)
-        log(f"{label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bnd:.4f} ms "
-            f"({by}); data: {f32_ops / 9:.3e} distance tests, {mlp_ops:.3e} MLP FLOP")
+        split = ""
+        if chunks is None:   # the ball query and the MLP, launched apart
+            sel = ops.sa_select(xs, cs, radius)
+            sel_ms = cuda_ms(lambda: ops.sa_select(xs, cs, radius), 3)
+            mlp_ms = cuda_ms(lambda: ops.sa_kernel(*args, weights, radius, None, in_cloud, raw,
+                                                   selection=sel), 3)
+            split = f" = select {sel_ms:.4f} + MLP {mlp_ms:.4f} ms launched apart"
+        log(f"{label} B={xs.shape[0]}: kernels {ms:.4f} ms{split} [{smi}]")
         return out
 
     fast_chunks = lambda xs, cs: ops.chunk_window(xs, cs, FAST_W)
@@ -588,28 +725,26 @@ def main() -> int:
     sa0_args = (xyz, feat, cent["SA0"])
     f0 = None
     for dtype in (f32, bf16):
-        f0 = check_sa("sa SA0", "sa", sa0_args, 0, (64, 64, 64), dtype)[0]
+        f0 = check_sa("sa SA0", sa0_args, 0, dtype)[0]
     sa1_args = (cent["SA0"], f0, cent["SA1"])
     for dtype in (f32, bf16):
-        check_sa("sa SA1", "sa", sa1_args, 1, (128, 128, 256), dtype)
+        check_sa("sa SA1", sa1_args, 1, dtype)
     phase(f"fast SA0 kernel vs plain (W={FAST_W})")
     for dtype in (f32, bf16):
-        check_sa(f"sa_fast SA0 W={FAST_W}", "sa_fast", sa0_args, 0, (64, 64, 64), dtype,
-                 chunks_fn=fast_chunks)
+        check_sa(f"sa_fast SA0 W={FAST_W}", sa0_args, 0, dtype, chunks_fn=fast_chunks)
     phase("SA kernel raw block vs plain (SA0, SA1)")
     for dtype in (f32, bf16):
-        check_sa("sa_raw SA0", "sa_raw", sa0_args, 0, (64, 64, 64), dtype, raw=True)
-        check_sa("sa_raw SA1", "sa_raw", sa1_args, 1, (128, 128, 256), dtype, raw=True)
+        check_sa("sa_raw SA0", sa0_args, 0, dtype, raw=True)
+        check_sa("sa_raw SA1", sa1_args, 1, dtype, raw=True)
     phase("SA kernel, centroids off the cloud (v3) vs plain (SA0, SA1)")
-    for label, args, stage, widths in (("SA0", sa0_args, 0, (64, 64, 64)),
-                                       ("SA1", sa1_args, 1, (128, 128, 256))):
+    for label, args, stage in (("SA0", sa0_args, 0), ("SA1", sa1_args, 1)):
         off = args[2].clone()
         off[:, 1::3] += 0.013                   # beside their points
         off[:, 2::17] = torch.tensor([5.0, -4.0, 3.0], device=dev)  # no neighbour: point 0's row
         off_args = (args[0], args[1], off)
         for dtype in (f32, bf16):
-            out = check_sa(f"sa_v3 {label} off-cloud", "sa_v3", off_args, stage, widths, dtype,
-                           in_cloud=False, timed=False)
+            out = check_sa(f"sa_v3 {label} off-cloud", off_args, stage, dtype, in_cloud=False,
+                           timed=False)
             radius = stage_radii[stage]
             v8 = ops.sa_stage(*off_args, sa_w[dtype][stage], radius, impl="v8",
                               centroids_in_cloud=True)
@@ -620,17 +755,15 @@ def main() -> int:
             if torch.equal(out[0][:, 2::17], v8[0][:, 2::17]):
                 raise AssertionError(f"{label} {dtype}: the count==0 branch did not fire")
         log(f"{label}: impl v5 (centroids_in_cloud) equals v8 bit for bit")
-        check_sa(f"sa_v3 {label}", "sa_v3", args, stage, widths, bf16, in_cloud=False)
+        check_sa(f"sa_v3 {label}", args, stage, bf16, in_cloud=False)
 
     phase("SA kernel, neighbour counts across the 16-row tiles (SA0, SA1 widths)")
-    sgen = torch.Generator(dev).manual_seed(SEED + 6)
-    for label, stage, c_in, widths in (("SA0", 0, 1, (64, 64, 64)), ("SA1", 1, 64, (128, 128, 256))):
-        spread = spread_cloud(sgen, stage_radii[stage], c_in, 4, dev)
-        whole = lambda xs, cs: ops.chunk_window(xs, cs, -(-xs.shape[1] // 128))
+    whole = lambda xs, cs: ops.chunk_window(xs, cs, -(-xs.shape[1] // 128))
+    for label, stage in (("SA0", 0), ("SA1", 1)):
         for dtype in (f32, bf16):
             for kernel, kw in (("sa", {}), ("sa_raw", dict(raw=True)),
                                ("sa_v3", dict(in_cloud=False)), ("sa_fast", dict(chunks_fn=whole))):
-                check_sa(f"{kernel} {label} counts {SPREAD}", kernel, spread, stage, widths, dtype,
+                check_sa(f"{kernel} {label} counts {SPREAD}", spread[stage], stage, dtype,
                          timed=False, **kw)
 
     # ---- 2. full-width forward: kernel path against the plain paths -------
@@ -768,7 +901,7 @@ def main() -> int:
             raise AssertionError("server trajectory leaves the joint limits")
         log(f"response: success={resp['success']} num_steps={resp['num_steps']}")
     log(f"server: 3 requests in {t_serve:.2f} s")
-    count_path("server", ("fps", "sa"))
+    count_path("server", ("fps", "sa_select", "sa"))
 
     phase(f"batched rollout: B={B}, fast_grouping={FAST_W}, {STEPS_LONG} - {STEPS_SHORT} steps")
     apply_fn = fused.make_fused_apply(bf16, fast_grouping=FAST_W)
@@ -786,8 +919,8 @@ def main() -> int:
 
     ops.reset_launches()
     t_long, final = timed(STEPS_LONG)
-    per_step = {f"{k} N={n} S={s_}": v / STEPS_LONG
-                for (k, n, s_), v in ops.LAUNCHES_BY_SHAPE.items()}
+    per_step = {f"{k} B={b_} N={n} S={s_}": v / STEPS_LONG
+                for (k, b_, n, s_), v in ops.LAUNCHES_BY_SHAPE.items()}
     if not torch.isfinite(final).all():
         raise AssertionError("rollout: non-finite configurations")
     rates = []
@@ -797,7 +930,7 @@ def main() -> int:
         rates.append(B * (STEPS_LONG - STEPS_SHORT) / (t_long - t_short))
     rate = float(np.median(rates))
     log(f"rollout: env-steps/s {rates} (median {rate:.1f}); launches per step {per_step}")
-    count_path("rollouts", ("fps", "sa", "sa_fast"))
+    count_path("rollouts", ("fps", "sa_select", "sa", "sa_fast"))
 
     phase(f"profile: one {STEPS_SHORT}-step rollout (torch.profiler)")
     profile_rollout(rollouts[STEPS_SHORT], problem, torch.Generator(dev).manual_seed(SEED + 2))
@@ -813,7 +946,7 @@ def main() -> int:
         finals[sa_impl] = rollout(problem, torch.Generator(dev).manual_seed(SEED + 4)).final_q
         if sa_impl == "v3":
             torch.cuda.synchronize()
-            count_path("v3 rollout", ("fps", "sa_v3"))
+            count_path("v3 rollout", ("fps", "sa_select", "sa_v3"))
     if not torch.equal(finals["v3"], finals["v8"]):
         raise AssertionError("v3 rollout differs from the v8 rollout on FPS centroids")
     log("v3 rollout: final configurations equal the v8 rollout's")
@@ -831,7 +964,7 @@ def main() -> int:
             state = trainer.run()
             torch.cuda.synchronize()
             t_run = time.perf_counter() - t0
-            count_path(f"trainer B={tb_size}", ("fps", "sa_raw", "sa"))
+            count_path(f"trainer B={tb_size}", ("fps", "sa_select", "sa_raw", "sa"))
             rows = [json.loads(line) for line in open(trainer.ckpt_dir / "metrics.jsonl")]
             val = [r for r in rows if "avg_target_error" in r]
             losses = [r["val_loss"] for r in rows if "val_loss" in r]
@@ -909,7 +1042,7 @@ def main() -> int:
         ops.reset_launches()
         small = Trainer(cfg, test=True, device="cuda").run()
         torch.cuda.synchronize()
-        count_path("trainer, small cloud", ("fps", "sa_raw", "sa"))
+        count_path("trainer, small cloud", ("fps", "sa_select", "sa_raw", "sa"))
         if small.step != 10 or not all(torch.isfinite(p).all() for p in small.model.parameters()):
             raise AssertionError(f"trainer, small cloud: step {small.step} or non-finite weights")
     # ---- 5. the TPU probe session ----------------------------------------
@@ -935,21 +1068,19 @@ def main() -> int:
     log(f"SA0 scan stages at B=256, N=6272, S=512, r=0.05 (ms): {stages}; SA0 exact (v8, bf16) "
         f"{sa0_exact['ms']:.4f} ms [{smi}]; the phase took {time.perf_counter() - t0:.1f} s")
 
+    # ---- 6. each kernel at each shape the main paths launched it at --------
+    phase("kernels at the main paths' shapes: vs plain, times and bounds, bf16")
     by_shape = dict(main_launches)
-    log(f"main-path launches by (kernel, N, S): {by_shape}")
+    log(f"main-path launches by (kernel, B, N, S): {by_shape}")
+    inputs = {}
+    kernels = [time_at_shape(key, launches, inputs, xyz, feat, sa_w[bf16], stage_radii, smi)
+               for key, launches in sorted(by_shape.items())]
+    rank = Counter()
+    for r in kernels:
+        rank[r["name"].split()[0]] += r["launches"] * (r["ms"] - r["bound_ms"])
+    log("launches x (ms - bound ms), summed over each kernel's shapes: "
+        + "; ".join(f"{k} {v:.1f}" for k, v in rank.most_common()) + f" [{smi}]")
 
-    # ---- 6. per-kernel line ------------------------------------------------
-    kernels = []
-    for name, r in report.items():
-        k = r["kernel"]
-        if not by_shape.get((k, *r["shape"])):
-            raise AssertionError(f"{name} was not launched on the main path")
-        kernels.append({
-            "name": name, "route": "cuda", "source": CUDA_SOURCES[k],
-            "replaces": TPU_SOURCES[k], "launches": by_shape.get((k, *r["shape"]), 0),
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
-        })
     for r in probe_times:
         if not r["launches"]:
             raise AssertionError(f"probe {r['name']} was not launched in the probe session")

@@ -19,7 +19,8 @@ Response::
      "trajectory": [[7 floats], ...],            # q0 first
      "times": [0.0, 0.12, 0.24, ...]}
 
-A malformed request gets ``{"success": false, "error": "..."}``.
+A malformed request gets ``{"success": false, "error": str(exception)}``,
+as the JAX server answers it.
 
 Usage::
 
@@ -139,7 +140,7 @@ def serve(planner: Planner, infile=sys.stdin, outfile=sys.stdout) -> None:
                 req["q0"], req["target_position"], req["target_quaternion"]
             )
         except Exception as e:  # noqa: BLE001 -- the server answers every line
-            resp = {"success": False, "error": f"{type(e).__name__}: {e}"}
+            resp = {"success": False, "error": str(e)}
         outfile.write(json.dumps(resp) + "\n")
         outfile.flush()
 

@@ -1,7 +1,8 @@
-// Fused PointNet++ set-abstraction stage on Hopper (sm_90a), bound through
-// a plain C interface (ctypes): ball query, first-128 selection, gather,
-// 3-layer shared MLP and max-pool in one kernel, for the exact and the
-// fast (chunk-window) grouping.
+// PointNet++ set-abstraction stage on Hopper (sm_90a), bound through a plain
+// C interface (ctypes): ball query, first-128 selection, gather, 3-layer
+// shared MLP and max-pool. The exact grouping runs as two launches on the
+// caller's stream, a ball-query kernel that writes the selection and an MLP
+// kernel that reads it; the fast (chunk-window) grouping runs as one.
 //
 // Replaces: mpinets_tpu/kernels/pallas_ops.py::_sa_kernel_v8 (exact,
 // chunks = null, in_cloud = 1; with its return_raw output when raw is not
@@ -17,7 +18,8 @@
 //    |p|^2 form flips boundary points, pallas_ops.py:785-788). Under bf16
 //    compute the fast kernel tests bf16-rounded point coordinates against
 //    f32 centroids (pallas_ops.py:1241-1242,1068-1085).
-//  * idx gets the kept indices with fill-with-first (0 when none).
+//  * idx gets the kept indices with fill-with-first (0 when none); count
+//    (exact path) the kept count, min(hits, 128).
 //  * The raw rows [xyz, feat] of the kept points (not recentred), rounded to
 //    the compute type, go through layer 1 with the recentring folded into
 //    the bias, (raw . W1 + b1) - W1[:3]^T c in f32 (the v8 form,
@@ -32,22 +34,47 @@
 //    point in scan order; zero rows past the count (pallas_ops.py:920-926).
 //    The train path's backward reads it instead of gathering again.
 //
-// Two kernels share the scan. Each is a template over the raw block (kRaw)
-// and the off-cloud branch (kPoint0), so the inference launch compiles
-// without either; the raw block is a v8 output and so comes only with
-// in_cloud = 1. mpn_sa picks one of six instantiations.
+// sa_select_kernel<kCpw> (exact ball query, the scan of pallas_ops.py:
+// 814-891). What bounds it on the H100: the distance tests, up to B*S*N of
+// them (9 f32 operations each: 8.2e8 tests, 0.11 ms at 67 TFLOP/s at
+// B=256, N=6272, S=512, where a centroid keeps about 3.6 points and so
+// scans the whole cloud); the bytes (cloud, centroids, idx) are a few tens
+// of MB. Design: one block of 8 warps per (batch row, tile of 8 * kCpw
+// centroids) stages the row's cloud as x[N], y[N], z[N] f32 in shared
+// memory (75 KB at N=6272, padded to whole chunks with NaN, which no test
+// passes), so the scan reads no global memory; each warp scans for kCpw
+// centroids at once, so each point read from shared memory is tested
+// against kCpw centroids. Per step of 32 points, __ballot_sync gives each
+// centroid its hit mask, and __popc of the mask below the lane gives every
+// hit its slot in scan order (the order-preserving compaction the TPU
+// kernel built from prefix matmuls and a binary search); hits below slot
+// 128 go straight to idx. A warp stops after the chunk in which its last
+// centroid reached 128. kCpw is 4 where the batch gives the card two
+// blocks per SM at that tile, else 2 or 1, so a small batch (the server's
+// B=1) still spreads over the SMs. Features are not staged: the MLP kernel
+// gathers only the kept rows. The largest cloud staged is what fits in
+// the block's shared memory; the wrapper refuses a larger one.
+//
+// The MLP kernels are templates over the raw block (kRaw), the off-cloud
+// branch (kPoint0) and the grouping (kFast): on the exact path (kFast = 0)
+// a warp reads its centroid's selection from idx and count; on the fast
+// path it scans the window itself (select_warp, one warp per centroid,
+// the same ballot compaction over the cloud in global memory). The raw
+// block is a v8 output and so comes only with in_cloud = 1 on the exact
+// path. mpn_sa picks one of eight instantiations.
 //
 // sa_kernel_mma (bf16): the MLP runs on the tensor cores, mma.sync
 // m16n8k16 with bf16 operands and f32 accumulation, as the TPU kernel runs
-// it on the MXU (pallas_ops.py:947-960). What bounds it on the H100: at SA1
-// the MLP over the valid rows (about 61 rows per centroid, 2.3e11 FLOP at
-// B=256), latency-bound with one block of 8 warps per SM; at SA0 the
-// candidate scan (the whole 6272-point cloud per centroid, which keeps
-// about 3.6 rows), one L2-latency step per 32 candidates. Design:
+// it on the MXU (pallas_ops.py:947-960). What bounds it on the H100: the
+// MLP over the valid rows (about 61 rows per centroid at SA1, 2.3e11 FLOP
+// at B=256; about 3.6 at SA0), latency-bound with one block of 8 warps per
+// SM at SA1, and at SA0 the gather and the weights' copy per block of 8
+// centroids. Design:
 //  * One block of 8 warps per 8 centroids of one batch row; the block
 //    copies the three layers' weights (bf16, W^T [n, k], zero-padded to
 //    multiples of 16, made once per model by prepare_sa_weights) into shared
-//    memory with cp.async while warp w scans for centroid w, and waits once.
+//    memory with cp.async while warp w reads (or scans for) the selection
+//    of centroid w, and waits once.
 //  * Rows go in tiles of 16 (the mma's m), up to max(count, 1) per
 //    centroid: 1 tile at SA0 and about 4 at SA1, so no packing of rows
 //    across centroids is needed. The block's tiles are dealt to its warps in
@@ -66,12 +93,10 @@
 //    4, 8 and 16) goes into the centroid's max-pool by an integer atomicMax
 //    (ReLU outputs are non-negative, whose bits order as ints).
 //  * Shared memory: 210 KB at SA1 (one block per SM), 66 KB at SA0, where
-//    __launch_bounds__(256, 3) (80 registers) keeps 3 blocks per SM for the
-//    scan. A stage whose weights and tiles do not fit takes the CUDA-core
-//    kernel.
+//    __launch_bounds__(256, 3) (80 registers) keeps 3 blocks per SM. A
+//    stage whose weights and tiles do not fit takes the CUDA-core kernel.
 // Left for later: wgmma, whose 64-row tiles need rows packed across
-// centroids (and would read each weight tile once per 64 rows, not per 16),
-// and the cloud staged in shared memory for the SA0 scan.
+// centroids (and would read each weight tile once per 64 rows, not per 16).
 //
 // sa_kernel (f32; and bf16 beyond the tensor-core kernel's shared memory):
 // the MLP on the CUDA cores (67 TFLOP/s f32 peak), per centroid on blocks
@@ -79,12 +104,6 @@
 // 8 rows, reads weights through L1 and activations as float4 broadcasts,
 // and folds layer 3 into a running max-pool, so no [rows, C3] activation is
 // stored.
-//
-// Selection, in both: one warp per centroid; each step tests 32
-// candidates, __ballot_sync + __popc give every hit its slot in scan order
-// (the order-preserving compaction the TPU kernel built from prefix matmuls
-// and a binary search, pallas_ops.py:824-891), and the scan stops once 128
-// are found.
 //
 // Rounding: the in-ball distance is written with __fsub_rn/__fmul_rn/
 // __fadd_rn, which nvcc never contracts into FMAs, so membership matches
@@ -112,8 +131,19 @@ constexpr int kTile = 16;     // tensor-core row tile (the mma's m)
 constexpr int kPad = 8;       // bf16 padding of each shared row (16 bytes)
 constexpr int kNc = 32;       // tensor-core output columns per pass
 constexpr int kGather = 8;    // raw-row loads in flight per lane
+constexpr int kSelWarps = 8;  // warps per ball-query block
+constexpr int kSelThreads = kSelWarps * 32;
 
 using bf16_t = __nv_bfloat16;
+
+struct SelArgs {
+  const float* xyz;   // [b, n, 3]
+  const float* cent;  // [b, s, 3]
+  int* idx;           // [b, s, kNs]
+  int* count;         // [b, s]: min(hits, kNs)
+  int n, s, np;       // np: n rounded up to whole chunks (the staged length)
+  float r2;
+};
 
 struct SaArgs {
   const float* xyz;     // [b, n, 3]
@@ -132,7 +162,8 @@ struct SaArgs {
   const bf16_t* w2t;    // [n2p, n1p]
   const bf16_t* w3t;    // [n3p, n2p]
   float* out;           // [b, s, c3]
-  int* idx;             // [b, s, kNs]
+  int* idx;             // [b, s, kNs]: written (fast) or read (exact)
+  const int* count;     // [b, s]: the kept counts (exact), or null (fast)
   float* raw;           // [b, s, kNs, 3 + c] (kRaw) or null
   int n, s, c, kp, c1, c2, c3, window, bf16;
   int k1p, n1p, n2p, n3p;  // 3 + c, c1, c2, c3 rounded up to 16
@@ -151,26 +182,112 @@ __device__ __forceinline__ float dist2(float x, float y, float z, float cx, floa
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
 }
 
-// Warp-wide scan for centroid (b, s): the first kNs hits in scan order go to
-// my_sel, idx gets them with fill-with-first. Returns the hit count.
+// ---------------------------------------------------------------------------
+// Exact ball query
+// ---------------------------------------------------------------------------
+
+template <int kCpw>
+__global__ void __launch_bounds__(kSelThreads, 2) sa_select_kernel(SelArgs a) {
+  extern __shared__ float cloud[];  // x[np], y[np], z[np]
+  float* sx = cloud;
+  float* sy = cloud + a.np;
+  float* sz = cloud + 2 * a.np;
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const float* xyz = a.xyz + (size_t)b * a.n * 3;
+#pragma unroll 4
+  for (int p = tid; p < a.n; p += kSelThreads) {
+    sx[p] = __ldg(xyz + 3 * p);
+    sy[p] = __ldg(xyz + 3 * p + 1);
+    sz[p] = __ldg(xyz + 3 * p + 2);
+  }
+  const float nan = __int_as_float(0x7fc00000);
+  for (int p = a.n + tid; p < a.np; p += kSelThreads) sx[p] = sy[p] = sz[p] = nan;
+
+  // this warp's centroids; one past S gets NaN (never a hit) and a full count
+  const int s0 = (blockIdx.x * kSelWarps + warp) * kCpw;
+  float cx[kCpw], cy[kCpw], cz[kCpw];
+  int cnt[kCpw], first[kCpw];
+#pragma unroll
+  for (int g = 0; g < kCpw; ++g) {
+    cx[g] = cy[g] = cz[g] = nan;
+    cnt[g] = kNs;
+    first[g] = 0;
+    if (s0 + g < a.s) {
+      const float* c = a.cent + ((size_t)b * a.s + s0 + g) * 3;
+      cx[g] = c[0];
+      cy[g] = c[1];
+      cz[g] = c[2];
+      cnt[g] = 0;
+    }
+  }
+  __syncthreads();
+
+  int* rows = a.idx + ((size_t)b * a.s + s0) * kNs;  // centroid s0 + g: rows + g * kNs
+  const unsigned below = (1u << lane) - 1u;
+  // the counts and masks are warp-uniform, so are the branches on them
+  for (int c = 0; c < a.np / kChunk; ++c) {
+    bool done = true;
+#pragma unroll
+    for (int g = 0; g < kCpw; ++g) done = done && cnt[g] >= kNs;
+    if (done) break;
+#pragma unroll
+    for (int k = 0; k < kChunk / 32; ++k) {
+      const int p = c * kChunk + 32 * k + lane;
+      const float x = sx[p], y = sy[p], z = sz[p];
+#pragma unroll
+      for (int g = 0; g < kCpw; ++g) {
+        const bool in = dist2(x, y, z, cx[g], cy[g], cz[g]) < a.r2;
+        const unsigned m = __ballot_sync(0xffffffffu, in);
+        if (m) {
+          if (cnt[g] == 0) first[g] = p - lane + __ffs(m) - 1;
+          const int slot = cnt[g] + __popc(m & below);
+          if (in && slot < kNs) rows[g * kNs + slot] = p;
+          cnt[g] += __popc(m);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < kCpw; ++g) {
+    if (s0 + g >= a.s) break;
+    const int kept = min(cnt[g], kNs);
+    for (int k = kept + lane; k < kNs; k += 32) rows[g * kNs + k] = first[g];
+    if (lane == 0) a.count[(size_t)b * a.s + s0 + g] = kept;
+  }
+}
+
+// Exact path: the selection of centroid (b, s) that sa_select_kernel wrote,
+// its kept indices into my_sel. Returns the kept count.
+__device__ __forceinline__ int load_selection(const SaArgs& a, int b, int s, int lane,
+                                              int* my_sel) {
+  const size_t row = (size_t)b * a.s + s;
+  const int kept = a.count[row];
+  for (int k = lane; k < kept; k += 32) my_sel[k] = a.idx[row * kNs + k];
+  __syncwarp();
+  return kept;
+}
+
+// Fast path: warp-wide scan of centroid (b, s)'s window. The first kNs hits
+// in scan order go to my_sel, idx gets them with fill-with-first. Returns
+// the hit count.
 __device__ __forceinline__ int select_warp(const SaArgs& a, const float* xyz, int b, int s,
                                            bool bf16, int lane, int* my_sel) {
   int count = 0;
   const float* c = a.cent + ((size_t)b * a.s + s) * 3;
   const float cx = c[0], cy = c[1], cz = c[2];
-  const bool fast = a.chunks != nullptr;
-  const int nlist = fast ? a.window : (a.n + kChunk - 1) / kChunk;
-  const int* list = fast ? a.chunks + ((size_t)b * a.s + s) * a.window : nullptr;
-  const bool round_pts = fast && bf16;
+  const int* list = a.chunks + ((size_t)b * a.s + s) * a.window;
   // count is warp-uniform (it only grows by ballot popcounts), so are the exits
-  for (int li = 0; li < nlist && count < kNs; ++li) {
-    const int chunk = fast ? list[li] : li;
+  for (int li = 0; li < a.window && count < kNs; ++li) {
+    const int chunk = list[li];
     for (int sub = 0; sub < kChunk / 32 && count < kNs; ++sub) {
       const int p = chunk * kChunk + sub * 32 + lane;
       bool in = false;
       if (p < a.n) {
         float x = xyz[3 * p], y = xyz[3 * p + 1], z = xyz[3 * p + 2];
-        if (round_pts) {
+        if (bf16) {
           x = round_bf16(x);
           y = round_bf16(y);
           z = round_bf16(z);
@@ -244,8 +361,9 @@ __device__ __forceinline__ void dense(const float* in, int kin, const float* __r
 }
 
 // kRaw: write the raw block; kPoint0: a centroid without neighbours takes
-// point 0's layer-1 row (centroids off the cloud), else a zero raw row.
-template <bool kRaw, bool kPoint0>
+// point 0's layer-1 row (centroids off the cloud), else a zero raw row;
+// kFast: scan the window, else read the exact selection.
+template <bool kRaw, bool kPoint0, bool kFast>
 __global__ void __launch_bounds__(kThreads) sa_kernel(SaArgs a) {
   extern __shared__ float4 smem4[];
   float* raw = reinterpret_cast<float*>(smem4);  // [kRows][kp]
@@ -265,10 +383,14 @@ __global__ void __launch_bounds__(kThreads) sa_kernel(SaArgs a) {
   const float* feat = a.feat + (size_t)b * a.n * a.c;
   const bool bf16 = a.bf16 != 0;
 
-  // ---- selection: warp w scans for centroid s0 + w --------------------------
+  // ---- selection of centroid s0 + w, by warp w -------------------------------
   {
     const int s = s0 + warp;
-    const int count = s < a.s ? select_warp(a, xyz, b, s, bf16, lane, sel + warp * kNs) : 0;
+    int count = 0;
+    if (s < a.s) {
+      count = kFast ? select_warp(a, xyz, b, s, bf16, lane, sel + warp * kNs)
+                    : load_selection(a, b, s, lane, sel + warp * kNs);
+    }
     if (lane == 0) cnt[warp] = count;
   }
   __syncthreads();
@@ -475,7 +597,7 @@ __device__ __forceinline__ void mma_layer(const bf16_t* A, int lda, const bf16_t
   }
 }
 
-template <bool kRaw, bool kPoint0>
+template <bool kRaw, bool kPoint0, bool kFast>
 __global__ void __launch_bounds__(kThreads, 3) sa_kernel_mma(SaArgs a) {
   extern __shared__ float4 smem4[];
   const int lda = max(a.k1p, a.n2p) + kPad;  // tile buffer A: raw rows, then h2
@@ -513,7 +635,8 @@ __global__ void __launch_bounds__(kThreads, 3) sa_kernel_mma(SaArgs a) {
     int count = -1;
     if (s < a.s) {
       int* my_sel = sel + warp * kNs;
-      count = select_warp(a, xyz, b, s, true, lane, my_sel);
+      count = kFast ? select_warp(a, xyz, b, s, true, lane, my_sel)
+                    : load_selection(a, b, s, lane, my_sel);
       if constexpr (kRaw) {  // all 128 slots, as the CUDA-core kernel writes them
         const int p = 3 + a.c;
         const int kept = min(count, kNs);
@@ -617,10 +740,16 @@ __global__ void __launch_bounds__(kThreads, 3) sa_kernel_mma(SaArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// Launch plan
+// Launch plans
 // ---------------------------------------------------------------------------
 
 int round16(int x) { return (x + 15) / 16 * 16; }
+
+cudaError_t device_attribute(cudaDeviceAttr attr, int* value) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  return e == cudaSuccess ? cudaDeviceGetAttribute(value, attr, dev) : e;
+}
 
 struct Plan {
   void (*kernel)(SaArgs);
@@ -628,79 +757,160 @@ struct Plan {
   int mma;  // 1: the tensor-core kernel
 };
 
-// The kernel for these widths and options and its dynamic shared memory.
-// bf16 takes the tensor-core kernel when it fits the device's shared memory,
-// else the CUDA-core kernel.
+template <bool kRaw, bool kPoint0, bool kFast>
+void pick(int mma, Plan* p) {
+  p->kernel = mma ? sa_kernel_mma<kRaw, kPoint0, kFast> : sa_kernel<kRaw, kPoint0, kFast>;
+}
+
+// The MLP kernel for these widths and options and its dynamic shared
+// memory. bf16 takes the tensor-core kernel when it fits the device's shared
+// memory, else the CUDA-core kernel.
 cudaError_t plan(int c, int kp, int c1, int c2, int c3, int bf16, int in_cloud, int raw,
-                 Plan* p) {
+                 int fast, Plan* p) {
   const int k1p = round16(3 + c), n1p = round16(c1), n2p = round16(c2), n3p = round16(c3);
   const size_t mma_smem =
       2 * ((size_t)n1p * (k1p + kPad) + (size_t)n2p * (n1p + kPad) + (size_t)n3p * (n2p + kPad) +
            (size_t)kTs * kTile * (std::max(k1p, n2p) + n1p + 2 * kPad)) +
       4 * ((size_t)kTs * (n1p + c3 + kNs) + kTs + n1p + n2p + n3p);
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  }
+  int optin = 0;
+  cudaError_t e = device_attribute(cudaDevAttrMaxSharedMemoryPerBlockOptin, &optin);
   if (e != cudaSuccess) return e;
-  if (bf16 && mma_smem <= (size_t)optin) {
-    p->kernel = raw ? sa_kernel_mma<true, false>
-                : in_cloud ? sa_kernel_mma<false, false> : sa_kernel_mma<false, true>;
-    p->smem = mma_smem;
-    p->mma = 1;
+  p->mma = bf16 && mma_smem <= (size_t)optin;
+  if (fast) {
+    pick<false, false, true>(p->mma, p);
+  } else if (raw) {
+    pick<true, false, false>(p->mma, p);
+  } else if (in_cloud) {
+    pick<false, false, false>(p->mma, p);
   } else {
-    p->kernel = raw ? sa_kernel<true, false>
-                : in_cloud ? sa_kernel<false, false> : sa_kernel<false, true>;
-    p->smem = ((size_t)kRows * (kp + c1 + c2) + c1 + (size_t)kGroups * c3) * sizeof(float) +
-              (kTs * kNs + kTs) * sizeof(int);
-    p->mma = 0;
+    pick<false, true, false>(p->mma, p);
   }
+  p->smem = p->mma ? mma_smem
+                   : ((size_t)kRows * (kp + c1 + c2) + c1 + (size_t)kGroups * c3) * sizeof(float) +
+                         (kTs * kNs + kTs) * sizeof(int);
   return cudaFuncSetAttribute(p->kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)p->smem);
+}
+
+struct SelPlan {
+  void (*kernel)(SelArgs);
+  size_t smem;
+  int cpw;    // centroids per warp
+  int tile;   // centroids per block
+};
+
+// The ball-query launch for b rows of n points and s centroids: the largest
+// kCpw whose tiles give at least two blocks per SM, and the staged cloud's
+// shared memory (cudaErrorInvalidValue where it does not fit a block).
+cudaError_t select_plan(int b, int n, int s, SelPlan* p) {
+  int sms = 0, optin = 0;
+  cudaError_t e = device_attribute(cudaDevAttrMultiProcessorCount, &sms);
+  if (e == cudaSuccess) e = device_attribute(cudaDevAttrMaxSharedMemoryPerBlockOptin, &optin);
+  if (e != cudaSuccess) return e;
+  p->cpw = 1;
+  for (int cpw = 4; cpw > 1; cpw /= 2) {
+    if ((long)b * ((s + kSelWarps * cpw - 1) / (kSelWarps * cpw)) >= 2L * sms) {
+      p->cpw = cpw;
+      break;
+    }
+  }
+  p->kernel = p->cpw == 4 ? sa_select_kernel<4> : p->cpw == 2 ? sa_select_kernel<2>
+                                                              : sa_select_kernel<1>;
+  p->tile = kSelWarps * p->cpw;
+  p->smem = 3 * sizeof(float) * (size_t)((n + kChunk - 1) / kChunk * kChunk);
+  if (p->smem > (size_t)optin) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(p->kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)p->smem);
+}
+
+cudaError_t launch_select(const float* xyz, const float* cent, int b, int n, int s, float r2,
+                          int* idx, int* count, cudaStream_t stream) {
+  SelPlan p;
+  cudaError_t e = select_plan(b, n, s, &p);
+  if (e != cudaSuccess) return e;
+  SelArgs a{xyz, cent, idx, count, n, s, (int)(p.smem / (3 * sizeof(float))), r2};
+  p.kernel<<<dim3((s + p.tile - 1) / p.tile, b), kSelThreads, p.smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shapes as in SaArgs. chunks == null selects the exact scan, else the fast
-// window scan over `window` chunks per centroid. in_cloud = 0 gives a
+// The exact ball query alone: idx [b, s, 128] (fill-with-first, 0 when
+// none) and count [b, s] (min(hits, 128)) of centroids cent [b, s, 3] in
+// the cloud xyz [b, n, 3], hits by dx*dx + dy*dy + dz*dz < r2 in f32.
+// Returns a cudaError_t (cudaErrorInvalidValue for a cloud whose staged
+// copy does not fit in a block's shared memory).
+int mpn_sa_select(const float* xyz, const float* cent, int b, int n, int s, float r2, int* idx,
+                  int* count, void* stream) {
+  if (b < 1 || b > 65535 || n < 1 || s < 1) return (int)cudaErrorInvalidValue;
+  return (int)launch_select(xyz, cent, b, n, s, r2, idx, count,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// Shapes as in SaArgs. chunks == null selects the exact grouping: with
+// select = 1 the ball-query kernel first writes idx and count (scratch
+// [b, s] int32), with select = 0 they are given; then the MLP kernel reads
+// them. Else the fast window scan over `window` chunks per centroid writes
+// idx in the MLP kernel (count and select unused). in_cloud = 0 gives a
 // centroid without neighbours point 0's layer-1 row; raw == null writes no
-// raw block, and a raw block needs in_cloud = 1. kp, c1 and c2 must be
-// multiples of 4. w1t, w2t, w3t: the bf16 W^T copies, zero-padded to
-// multiples of 16 (needed for bf16, null for f32). Returns a cudaError_t.
+// raw block, and a raw block needs in_cloud = 1 and the exact grouping.
+// kp, c1 and c2 must be multiples of 4. w1t, w2t, w3t: the bf16 W^T copies,
+// zero-padded to multiples of 16 (needed for bf16, null for f32). Both
+// launches go on `stream`. Returns a cudaError_t.
 int mpn_sa(const float* xyz, const float* feat, const float* cent, const int* chunks,
            int window, const float* w1, const float* w1f, const float* b1, const float* w2,
            const float* b2, const float* w3, const float* b3, const bf16_t* w1t,
            const bf16_t* w2t, const bf16_t* w3t, int b, int n, int s, int c, int kp, int c1,
-           int c2, int c3, float r2, int bf16, int in_cloud, float* out, int* idx, float* raw,
-           void* stream) {
-  if (kp % 4 || c1 % 4 || c2 % 4 || kp < 3 + c || b > 65535 || (raw && !in_cloud) ||
+           int c2, int c3, float r2, int bf16, int in_cloud, float* out, int* idx, int* count,
+           float* raw, int select, void* stream) {
+  const int fast = chunks != nullptr;
+  if (kp % 4 || c1 % 4 || c2 % 4 || kp < 3 + c || b < 1 || b > 65535 || s < 1 ||
+      (raw && !in_cloud) || (fast && (raw || !in_cloud)) || (!fast && !count) ||
       (bf16 && !(w1t && w2t && w3t)))
     return (int)cudaErrorInvalidValue;
   Plan p;
-  cudaError_t e = plan(c, kp, c1, c2, c3, bf16, in_cloud, raw != nullptr, &p);
+  cudaError_t e = plan(c, kp, c1, c2, c3, bf16, in_cloud, raw != nullptr, fast, &p);
   if (e != cudaSuccess) return (int)e;
-  SaArgs a{xyz, feat, cent, chunks, w1, w1f, b1, w2, b2, w3, b3, w1t, w2t, w3t, out, idx, raw,
-           n, s, c, kp, c1, c2, c3, window, bf16,
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!fast && select) {
+    e = launch_select(xyz, cent, b, n, s, r2, idx, count, st);
+    if (e != cudaSuccess) return (int)e;
+  }
+  SaArgs a{xyz, feat, cent, chunks, w1, w1f, b1, w2, b2, w3, b3, w1t, w2t, w3t, out, idx,
+           fast ? nullptr : count, raw, n, s, c, kp, c1, c2, c3, window, bf16,
            round16(3 + c), round16(c1), round16(c2), round16(c3), r2};
-  dim3 grid((s + kTs - 1) / kTs, b);
-  p.kernel<<<grid, kThreads, p.smem, static_cast<cudaStream_t>(stream)>>>(a);
+  p.kernel<<<dim3((s + kTs - 1) / kTs, b), kThreads, p.smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
-// The launch mpn_sa makes for these widths and options: *mma 1 for the
+// The MLP launch mpn_sa makes for these widths and options: *mma 1 for the
 // tensor-core kernel, its dynamic shared memory in bytes and the blocks of
 // it that fit on one SM. Returns a cudaError_t.
-int mpn_sa_plan(int c, int kp, int c1, int c2, int c3, int bf16, int in_cloud, int raw,
+int mpn_sa_plan(int c, int kp, int c1, int c2, int c3, int bf16, int in_cloud, int raw, int fast,
                 int* mma, int* smem, int* blocks_per_sm) {
   Plan p;
-  cudaError_t e = plan(c, kp, c1, c2, c3, bf16, in_cloud, raw, &p);
+  cudaError_t e = plan(c, kp, c1, c2, c3, bf16, in_cloud, raw, fast, &p);
   if (e == cudaSuccess) {
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, p.kernel, kThreads, p.smem);
   }
   *mma = p.mma;
+  *smem = (int)p.smem;
+  return (int)e;
+}
+
+// The ball-query launch for b rows, n points and s centroids: centroids per
+// warp, the staged cloud's shared memory in bytes and the blocks that fit
+// on one SM. Returns a cudaError_t.
+int mpn_sa_select_plan(int b, int n, int s, int* cpw, int* smem, int* blocks_per_sm) {
+  SelPlan p;
+  cudaError_t e = select_plan(b, n, s, &p);
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, p.kernel, kSelThreads,
+                                                      p.smem);
+  }
+  *cpw = p.cpw;
   *smem = (int)p.smem;
   return (int)e;
 }

@@ -5,11 +5,13 @@ Port of ``mpinets_tpu/kernels/pallas_ops.py``:
 
 * :func:`furthest_point_sample_with_coords` -- ``csrc/fps.cu``, replacing
   ``_fps_kernel`` / ``_fps_kernel_v2``.
-* :func:`sa_stage` -- ``csrc/sa.cu`` (exact scan), replacing
-  ``_sa_kernel_v8`` (``impl="v8"``, with its ``return_raw`` block), and
-  ``_sa_kernel`` / ``_sa_kernel_v5`` (``impl="v3"``/``"v5"``): v3, and v5
-  with ``centroids_in_cloud=False``, give a centroid without neighbours
-  point 0's layer-1 row; v5 with ``centroids_in_cloud=True`` is v8.
+* :func:`sa_stage` -- ``csrc/sa.cu`` (exact grouping: the ball-query
+  kernel, :func:`sa_select`, then an MLP kernel that reads its selection),
+  replacing ``_sa_kernel_v8`` (``impl="v8"``, with its ``return_raw``
+  block), and ``_sa_kernel`` / ``_sa_kernel_v5`` (``impl="v3"``/``"v5"``):
+  v3, and v5 with ``centroids_in_cloud=False``, give a centroid without
+  neighbours point 0's layer-1 row; v5 with ``centroids_in_cloud=True`` is
+  v8.
 * :func:`sa_stage_fast` -- ``csrc/sa.cu`` (chunk-window scan), replacing
   ``_sa_kernel_f1``. The window choice stays here, in torch, as the JAX
   package keeps it in XLA.
@@ -24,8 +26,10 @@ kernel's arithmetic (the raw-row layer 1 with the folded recentring bias,
 and the bf16 rounding points of the TPU kernels). Given CUDA tensors it
 launches the kernel or raises; it never falls back. Each launch adds one to
 :data:`LAUNCHES` and to :data:`LAUNCHES_BY_SHAPE`, under the name of the
-kernel's variant: ``sa`` (exact, in-cloud), ``sa_raw`` (exact, with the raw
-block), ``sa_v3`` (exact, off-cloud) or ``sa_fast``. The TPU probe kernels
+kernel: ``fps``; ``sa_select`` (the exact ball query); the SA MLP kernel by
+variant, ``sa`` (exact, in-cloud), ``sa_raw`` (exact, with the raw block),
+``sa_v3`` (exact, off-cloud) or ``sa_fast`` (its own window scan). An exact
+SA stage counts one ``sa_select`` and one MLP launch. The TPU probe kernels
 (``csrc/probes.cu``, wrapped in :mod:`mpinets_torch.probes`) count as
 ``probe_scan``, ``probe_micro``, ``probe_wide`` and ``probe_scratch``.
 
@@ -64,20 +68,27 @@ NSAMPLE = 128
 CHUNK = 128
 #: Largest cloud the FPS kernel takes (1024 threads x 8 points each).
 FPS_MAX_POINTS = 8192
+#: Largest cloud the ball-query kernel stages in shared memory (x, y, z f32:
+#: 192 KB, one block per SM; 75 KB and two or more at the 6272-point cloud).
+SELECT_MAX_POINTS = 16384
 
 #: Kernel launches since the last :func:`reset_launches`, by wrapper.
-LAUNCHES: Dict[str, int] = {"fps": 0, "sa": 0, "sa_raw": 0, "sa_v3": 0, "sa_fast": 0,
-                            "probe_scan": 0, "probe_micro": 0, "probe_wide": 0,
+LAUNCHES: Dict[str, int] = {"fps": 0, "sa_select": 0, "sa": 0, "sa_raw": 0, "sa_v3": 0,
+                            "sa_fast": 0, "probe_scan": 0, "probe_micro": 0, "probe_wide": 0,
                             "probe_scratch": 0}
-#: The same launches by (wrapper, N, S): cloud size and samples or centroids.
+#: The same launches by (kernel, B, N, S): batch, cloud size, and samples or
+#: centroids.
 LAUNCHES_BY_SHAPE: Counter = Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "mpn_fps": [_P, _I, _I, _I, _I, _P, _P, _P],
-    "mpn_sa": [_P] * 4 + [_I] + [_P] * 10 + [_I] * 8 + [ctypes.c_float, _I, _I] + [_P] * 4,
-    "mpn_sa_plan": [_I] * 8 + [_P] * 3,
+    "mpn_sa": ([_P] * 4 + [_I] + [_P] * 10 + [_I] * 8 + [ctypes.c_float, _I, _I] + [_P] * 4
+               + [_I, _P]),
+    "mpn_sa_plan": [_I] * 9 + [_P] * 3,
+    "mpn_sa_select": [_P, _P, _I, _I, _I, ctypes.c_float, _P, _P, _P],
+    "mpn_sa_select_plan": [_I] * 3 + [_P] * 3,
     "mpn_probe_scan": [_P] * 3 + [_I] * 3 + [ctypes.c_float, _I, _P, _P],
     "mpn_probe_micro": [_P, _P] + [_I] * 4 + [_P, _P, _P],
     "mpn_probe_wide": [_P, _P] + [_I] * 4 + [_P, _P],
@@ -92,9 +103,9 @@ def reset_launches() -> None:
     LAUNCHES_BY_SHAPE.clear()
 
 
-def _count(name: str, n: int, s: int) -> None:
+def _count(name: str, b: int, n: int, s: int) -> None:
     LAUNCHES[name] += 1
-    LAUNCHES_BY_SHAPE[(name, n, s)] += 1
+    LAUNCHES_BY_SHAPE[(name, b, n, s)] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -229,7 +240,7 @@ def furthest_point_sample_with_coords(
     _launch("fps", "mpn_fps", xyz.device, xyz.data_ptr(),
             int(xyz.dtype == torch.bfloat16), b, n, npoint,
             idx.data_ptr(), coords.data_ptr())
-    _count("fps", n, npoint)
+    _count("fps", b, n, npoint)
     return idx, coords.to(xyz.dtype)
 
 
@@ -338,18 +349,16 @@ def prepare_sa_weights(w1, b1, w2, b2, w3, b3, compute_dtype=torch.bfloat16) -> 
     )
 
 
-def sa_plain(xyz, features, centroids, weights: SAWeights, radius: float,
-             chunks: Optional[torch.Tensor] = None, in_cloud: bool = True,
-             return_raw: bool = False):
-    """Plain version of the SA kernel (``chunks=None``: exact scan; else the
-    fast window scan over ``chunks`` [B, S, W]), following the kernel's
-    arithmetic. ``in_cloud=False`` gives a centroid without neighbours point
-    0's layer-1 row. -> (features [B, S, C3] f32, idx int32 [B, S, 128]) and,
-    with ``return_raw``, the raw block [B, S, 128, 3 + C] f32."""
-    rnd = _rounder(weights.compute_dtype)
-    bf16 = weights.compute_dtype == torch.bfloat16
+def sa_select_plain(xyz, centroids, radius: float, chunks: Optional[torch.Tensor] = None,
+                    round_points: bool = False):
+    """Plain version of the selection: candidates in scan order -- every
+    point by index (``chunks=None``, the exact ball query), or the points of
+    ``chunks`` [B, S, W] in window-rank, lane order -- and the first 128
+    with ``(dx*dx + dy*dy) + dz*dz < r*r`` in f32 kept; ``round_points``
+    tests bf16-rounded candidate coordinates (the fast kernel under bf16).
+    -> (idx int32 [B, S, 128] with fill-with-first, 0 when none; count int32
+    [B, S], the kept count min(in-ball, 128))."""
     b, n, _ = xyz.shape
-    _check_rows(weights, features.shape[-1])
     s = centroids.shape[1]
     dev = xyz.device
     if chunks is None:
@@ -362,8 +371,8 @@ def sa_plain(xyz, features, centroids, weights: SAWeights, radius: float,
         live = cand < n
         cand = torch.clamp(cand, max=n - 1)
         pts = pointnet.gather_points(xyz, cand)
-        if bf16:
-            pts = rnd(pts)
+        if round_points:
+            pts = _rounder(torch.bfloat16)(pts)
     in_ball = (pointnet.sq_dist(pts, centroids[:, :, None, :]) < radius * radius) & live
     count = in_ball.sum(dim=-1)
     length = cand.shape[-1]
@@ -378,8 +387,21 @@ def sa_plain(xyz, features, centroids, weights: SAWeights, radius: float,
     sel = torch.take_along_dim(cand, torch.clamp(first, max=length - 1), dim=-1)
     fill = torch.where(count[..., None] > 0, sel[..., :1], torch.zeros_like(sel[..., :1]))
     idx = torch.where(found, sel, fill).to(torch.int32)
+    return idx, torch.clamp(count, max=NSAMPLE).to(torch.int32)
 
-    raw = torch.cat([pointnet.gather_points(xyz, sel), pointnet.gather_points(features, sel)],
+
+def sa_mlp_plain(xyz, features, centroids, weights: SAWeights, idx, count,
+                 in_cloud: bool = True, return_raw: bool = False):
+    """Plain version of the MLP kernel, from a selection (``idx``, ``count``
+    as :func:`sa_select_plain` gives them), following the kernel's
+    arithmetic. ``in_cloud=False`` gives a centroid without neighbours point
+    0's layer-1 row. -> features [B, S, C3] f32 and, with ``return_raw``,
+    the raw block [B, S, 128, 3 + C] f32."""
+    rnd = _rounder(weights.compute_dtype)
+    b = xyz.shape[0]
+    _check_rows(weights, features.shape[-1])
+    found = torch.arange(NSAMPLE, device=xyz.device) < count[..., None]
+    raw = torch.cat([pointnet.gather_points(xyz, idx), pointnet.gather_points(features, idx)],
                     dim=-1).float()
     raw = torch.where(found[..., None], raw, torch.zeros_like(raw))
     w = weights
@@ -396,25 +418,82 @@ def sa_plain(xyz, features, centroids, weights: SAWeights, radius: float,
     h = rnd(torch.relu(h))
     h = rnd(torch.relu(h @ w.w2 + w.b2))
     h = torch.relu(h @ w.w3 + w.b3)
-    valid = torch.arange(NSAMPLE, device=dev) < torch.clamp(count, 1, NSAMPLE)[..., None]
+    valid = torch.arange(NSAMPLE, device=xyz.device) < torch.clamp(count, min=1)[..., None]
     h = torch.where(valid[..., None], h, torch.full_like(h, -torch.inf))
     if return_raw:
-        return h.amax(dim=-2), idx, raw
-    return h.amax(dim=-2), idx
+        return h.amax(dim=-2), raw
+    return h.amax(dim=-2)
+
+
+def sa_plain(xyz, features, centroids, weights: SAWeights, radius: float,
+             chunks: Optional[torch.Tensor] = None, in_cloud: bool = True,
+             return_raw: bool = False):
+    """Plain version of the SA stage (``chunks=None``: exact scan; else the
+    fast window scan over ``chunks`` [B, S, W]): :func:`sa_select_plain`,
+    then :func:`sa_mlp_plain`. -> (features [B, S, C3] f32, idx int32
+    [B, S, 128]) and, with ``return_raw``, the raw block [B, S, 128, 3 + C]
+    f32."""
+    _check_rows(weights, features.shape[-1])
+    idx, count = sa_select_plain(xyz, centroids, radius, chunks,
+                                 chunks is not None and weights.compute_dtype == torch.bfloat16)
+    out = sa_mlp_plain(xyz, features, centroids, weights, idx, count, in_cloud, return_raw)
+    return (out[0], idx, out[1]) if return_raw else (out, idx)
+
+
+def _check_select(xyz, centroids) -> Tuple[int, int, int]:
+    b, n, _ = xyz.shape
+    s = centroids.shape[1]
+    _check(xyz, "xyz", (torch.float32,), (b, n, 3))
+    _check(centroids, "centroids", (torch.float32,), (b, None, 3))
+    if not (1 <= b <= 65535 and 1 <= n <= SELECT_MAX_POINTS and s >= 1):
+        raise ValueError(f"the ball-query kernel stages clouds of 1 <= N <= {SELECT_MAX_POINTS}"
+                         f" points (SELECT_MAX_POINTS) and takes 1 <= B <= 65535, S >= 1; "
+                         f"got B={b}, N={n}, S={s}")
+    return b, n, s
+
+
+def _r2(radius: float) -> float:
+    """r*r rounded to f32, as the kernels compare with it."""
+    return float(torch.tensor(radius * radius, dtype=torch.float32))
+
+
+def sa_select(xyz, centroids, radius: float):
+    """Exact ball query: per centroid, the first 128 points in index order
+    with ``(dx*dx + dy*dy) + dz*dz < r*r`` in f32. xyz [B, N, 3], centroids
+    [B, S, 3] f32 -> (idx int32 [B, S, 128] with fill-with-first, 0 when
+    none; count int32 [B, S], min(in-ball, 128)). On CUDA tensors the
+    ``sa_select_kernel`` of ``csrc/sa.cu`` (N <= :data:`SELECT_MAX_POINTS`),
+    counted as ``sa_select``; on CPU tensors :func:`sa_select_plain`."""
+    if _on_cpu(xyz, centroids):
+        return sa_select_plain(xyz, centroids, radius)
+    b, n, s = _check_select(xyz, centroids)
+    idx = torch.empty((b, s, NSAMPLE), dtype=torch.int32, device=xyz.device)
+    count = torch.empty((b, s), dtype=torch.int32, device=xyz.device)
+    _launch("sa", "mpn_sa_select", xyz.device, xyz.data_ptr(), centroids.data_ptr(), b, n, s,
+            _r2(radius), idx.data_ptr(), count.data_ptr())
+    _count("sa_select", b, n, s)
+    return idx, count
 
 
 def sa_kernel(xyz, features, centroids, weights: SAWeights, radius: float,
               chunks: Optional[torch.Tensor] = None, in_cloud: bool = True,
-              return_raw: bool = False):
-    """The SA kernel alone, on CUDA tensors: the exact scan (``chunks``
-    None) or the window scan over ``chunks`` int32 [B, S, W]; ``in_cloud``
-    and ``return_raw`` as in :func:`sa_plain`. What :func:`sa_stage` and
+              return_raw: bool = False,
+              selection: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """The SA kernels alone, on CUDA tensors: the exact grouping (``chunks``
+    None: the ball-query kernel, then the MLP kernel reading its selection)
+    or the window scan over ``chunks`` int32 [B, S, W] (one kernel);
+    ``in_cloud`` and ``return_raw`` as in :func:`sa_plain`. ``selection``
+    (exact only): a given (idx, count), as :func:`sa_select` returns them,
+    so only the MLP kernel launches. What :func:`sa_stage` and
     :func:`sa_stage_fast` launch."""
     extra = () if chunks is None else (chunks,)
+    extra += () if selection is None else tuple(selection)
     if _on_cpu(xyz, features, centroids, *weights.tensors, *weights.mma_tensors, *extra):
         raise ValueError("sa_kernel takes CUDA tensors (sa_stage runs the plain version)")
     if return_raw and not (in_cloud and chunks is None):
         raise ValueError("the raw block is an output of the exact in-cloud (v8) scan only")
+    if chunks is not None and (selection is not None or not in_cloud):
+        raise ValueError("the window scan selects for itself, centroids in the cloud")
     b, n, _ = xyz.shape
     c = features.shape[-1]
     s = centroids.shape[1]
@@ -426,6 +505,11 @@ def sa_kernel(xyz, features, centroids, weights: SAWeights, radius: float,
     _check(centroids, "centroids", (torch.float32,), (b, None, 3))
     if chunks is not None:
         _check(chunks, "chunks", (torch.int32,), (b, s, None))
+    elif selection is None:
+        _check_select(xyz, centroids)
+    else:
+        _check(selection[0], "idx", (torch.int32,), (b, s, NSAMPLE))
+        _check(selection[1], "count", (torch.int32,), (b, s))
     _check_rows(w, c)
     if w.compute_dtype == torch.bfloat16 and not w.mma_tensors:
         raise ValueError("bf16 weights need their tensor-core copies (prepare_sa_weights)")
@@ -436,7 +520,12 @@ def sa_kernel(xyz, features, centroids, weights: SAWeights, radius: float,
         raise ValueError(f"the SA kernel takes C1, C2 multiples of 4 and B, S >= 1; "
                          f"got C1={c1}, C2={c2}, B={b}, S={s}")
     out = torch.empty((b, s, c3), dtype=torch.float32, device=xyz.device)
-    idx = torch.empty((b, s, NSAMPLE), dtype=torch.int32, device=xyz.device)
+    if selection is None:
+        idx = torch.empty((b, s, NSAMPLE), dtype=torch.int32, device=xyz.device)
+        count = (None if chunks is not None
+                 else torch.empty((b, s), dtype=torch.int32, device=xyz.device))
+    else:
+        idx, count = selection
     raw = (torch.empty((b, s, NSAMPLE, 3 + c), dtype=torch.float32, device=xyz.device)
            if return_raw else None)
     window = 0 if chunks is None else chunks.shape[-1]
@@ -447,34 +536,47 @@ def sa_kernel(xyz, features, centroids, weights: SAWeights, radius: float,
         w.w1.data_ptr(), w.w1_f32.data_ptr(), w.b1.data_ptr(), w.w2.data_ptr(),
         w.b2.data_ptr(), w.w3.data_ptr(), w.b3.data_ptr(),
         *([t.data_ptr() for t in w.mma_tensors] or [None] * 3), b, n, s, c, kp, c1, c2, c3,
-        float(torch.tensor(radius * radius, dtype=torch.float32)),
-        int(w.compute_dtype == torch.bfloat16), int(in_cloud), out.data_ptr(), idx.data_ptr(),
-        None if raw is None else raw.data_ptr(),
+        _r2(radius), int(w.compute_dtype == torch.bfloat16), int(in_cloud), out.data_ptr(),
+        idx.data_ptr(), None if count is None else count.data_ptr(),
+        None if raw is None else raw.data_ptr(), int(selection is None),
     )
     if chunks is not None:
         name = "sa_fast"
-    elif return_raw:
-        name = "sa_raw"
     else:
-        name = "sa" if in_cloud else "sa_v3"
-    _count(name, n, s)
+        if selection is None:
+            _count("sa_select", b, n, s)
+        name = "sa_raw" if return_raw else "sa" if in_cloud else "sa_v3"
+    _count(name, b, n, s)
     return (out, idx, raw) if return_raw else (out, idx)
 
 
 def sa_launch_plan(weights: SAWeights, c: int, in_cloud: bool = True,
-                   raw: bool = False) -> Dict[str, int]:
-    """The launch :func:`sa_kernel` makes for these weights and C input
-    features on the current CUDA device: ``mma`` 1 for the tensor-core
-    kernel (bf16), 0 for the CUDA-core one; its dynamic shared memory in
-    bytes; and the blocks of it that fit on one SM."""
+                   raw: bool = False, fast: bool = False) -> Dict[str, int]:
+    """The MLP launch :func:`sa_kernel` makes for these weights and C input
+    features on the current CUDA device (``fast``: the window-scan
+    instantiation): ``mma`` 1 for the tensor-core kernel (bf16), 0 for the
+    CUDA-core one; its dynamic shared memory in bytes; and the blocks of it
+    that fit on one SM."""
     kp, c1 = weights.w1.shape
     c2, c3 = weights.w2.shape[1], weights.w3.shape[1]
     out = [ctypes.c_int() for _ in range(3)]
     rc = _library("sa").mpn_sa_plan(c, kp, c1, c2, c3, int(weights.compute_dtype == torch.bfloat16),
-                                    int(in_cloud), int(raw), *map(ctypes.byref, out))
+                                    int(in_cloud), int(raw), int(fast), *map(ctypes.byref, out))
     if rc != 0:
         raise RuntimeError(f"mpn_sa_plan failed: CUDA error {rc}")
     return dict(zip(("mma", "smem_bytes", "blocks_per_sm"), (v.value for v in out)))
+
+
+def sa_select_plan(b: int, n: int, s: int) -> Dict[str, int]:
+    """The launch :func:`sa_select` makes for B rows of N points and S
+    centroids on the current CUDA device: centroids per warp, the staged
+    cloud's shared memory in bytes, and the blocks that fit on one SM."""
+    out = [ctypes.c_int() for _ in range(3)]
+    rc = _library("sa").mpn_sa_select_plan(b, n, s, *map(ctypes.byref, out))
+    if rc != 0:
+        raise RuntimeError(f"mpn_sa_select_plan failed: CUDA error {rc}")
+    return dict(zip(("centroids_per_warp", "smem_bytes", "blocks_per_sm"),
+                    (v.value for v in out)))
 
 
 def sa_stage(xyz, features, centroids, weights: SAWeights, radius: float,

@@ -58,7 +58,7 @@ def wide_gather(tab, idx, parts: int = WIDE_PARTS) -> torch.Tensor:
     out = torch.empty((b, parts, width), dtype=torch.float32, device=tab.device)
     ops._launch("probes", "mpn_probe_wide", tab.device, tab.data_ptr(), idx.data_ptr(), b, parts,
                 nc, width, out.data_ptr())
-    ops._count("probe_wide", parts * nc, width)
+    ops._count("probe_wide", b, parts * nc, width)
     return out
 
 
@@ -81,5 +81,5 @@ def scratch_probe(steps: int = 4, device="cuda") -> torch.Tensor:
         raise ValueError(f"scratch_probe runs on the CPU or a CUDA device, got {device}")
     out = torch.empty((steps, SCRATCH_ROWS, ops.CHUNK), dtype=torch.float32, device=device)
     ops._launch("probes", "mpn_probe_scratch", device, steps, out.data_ptr())
-    ops._count("probe_scratch", steps * SCRATCH_ROWS, ops.CHUNK)
+    ops._count("probe_scratch", 1, steps * SCRATCH_ROWS, ops.CHUNK)
     return out

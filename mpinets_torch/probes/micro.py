@@ -110,5 +110,5 @@ def micro_probe(a, idx, op: str, reps: int, rb: int, return_group_sums: bool = F
     ops._launch("probes", "mpn_probe_micro", a.device, a.data_ptr(), idx.data_ptr(), rows, rb,
                 MICRO_OPS.index(op), reps, out.data_ptr(),
                 None if sums is None else sums.data_ptr())
-    ops._count("probe_micro", rows, rb)
+    ops._count("probe_micro", 1, rows, rb)
     return (out, sums) if return_group_sums else out

@@ -51,15 +51,11 @@ def _check_shapes(xyz, feat, cent, mode):
     return b, n, s
 
 
-def _r2(radius: float) -> float:
-    return float(torch.tensor(radius * radius, dtype=torch.float32))
-
-
 def scan_plain(xyz, feat, cent, radius: float, mode: str) -> torch.Tensor:
     """Plain version of the scan probe (see the module docstring)."""
     b, n, s = _check_shapes(xyz, feat, cent, mode)
     nc = n // ops.CHUNK
-    r2 = torch.tensor(_r2(radius), dtype=torch.float32, device=xyz.device)
+    r2 = torch.tensor(ops._r2(radius), dtype=torch.float32, device=xyz.device)
     hit = pointnet.sq_dist(xyz[:, None], cent[:, :, None]) < r2          # [B, S, N]
     if mode in ("hits", "count", "count_noscan", "slot"):
         h = hit.view(b, s, nc, ops.CHUNK).long()
@@ -102,6 +98,6 @@ def scan_probe(xyz, feat, cent, radius: float, mode: str) -> torch.Tensor:
     b, n, s = _check_shapes(xyz, feat, cent, mode)
     out = torch.empty((b, s, ops.CHUNK), dtype=torch.float32, device=xyz.device)
     ops._launch("probes", "mpn_probe_scan", xyz.device, xyz.data_ptr(), feat.data_ptr(),
-                cent.data_ptr(), b, n, s, _r2(radius), SCAN_MODES.index(mode), out.data_ptr())
-    ops._count("probe_scan", n, s)
+                cent.data_ptr(), b, n, s, ops._r2(radius), SCAN_MODES.index(mode), out.data_ptr())
+    ops._count("probe_scan", b, n, s)
     return out

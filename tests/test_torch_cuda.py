@@ -14,7 +14,8 @@ activation; relative to max(1, max|f|) in the tensor-core cases); the fused
 train path's f32 parameter gradients, kernels against plain versions,
 atol 2e-5 + 1e-4 max|g| (``test_fused_train.py``); the TPU probe kernels
 (``csrc/probes.cu``) bit-equal to their plain versions, which round and sum
-as the kernels do.
+as the kernels do; the ball-query kernel's idx and count equal to its plain
+version's.
 """
 
 import numpy as np
@@ -25,6 +26,8 @@ from mpinets_torch.kernels import ops
 from mpinets_torch.model import fused_train
 from mpinets_torch.model.policy import MotionPolicyNetwork
 from mpinets_torch.probes import design, micro, scan, session
+
+import torch_select_cases as select_cases  # (tests dir is on sys.path under pytest)
 
 
 @pytest.fixture
@@ -79,13 +82,13 @@ def test_sa_kernel_matches_plain(cuda, fast, dtype):
     kw = dict(radius=0.2, **({"window": 3} if fast else {}))
     counter = "sa_fast" if fast else "sa"
     before = ops.LAUNCHES[counter]
-    before_shape = ops.LAUNCHES_BY_SHAPE[(counter, 700, 37)]
+    before_shape = ops.LAUNCHES_BY_SHAPE[(counter, 3, 700, 37)]
     if not fast:
         kw.update(impl="v8", centroids_in_cloud=True)
     feats, idx = fn(*_stage_args(args, cuda, dtype), **kw)
     torch.cuda.synchronize()
     assert ops.LAUNCHES[counter] == before + 1
-    assert ops.LAUNCHES_BY_SHAPE[(counter, 700, 37)] == before_shape + 1
+    assert ops.LAUNCHES_BY_SHAPE[(counter, 3, 700, 37)] == before_shape + 1
     ref, ref_idx = fn(*_stage_args(args, "cpu", dtype), **kw)
     np.testing.assert_array_equal(idx.cpu().numpy(), ref_idx.numpy())
     tol = 1e-5 if dtype == torch.float32 else 1e-2
@@ -299,6 +302,92 @@ def test_masked_rows_would_win_the_max_pool():
     for i, k in enumerate(SPREAD):
         if 0 < k < 128 and k % 16:
             assert (gap[:, i] > 10 * 1e-2 * scale).all(), (k, gap[:, i], scale)
+
+
+# ---------------------------------------------------------------------------
+# The exact ball query (sa_select_kernel): the edge cases of
+# tests/torch_select_cases.py, the count spread, SA0 and SA1 at full shape
+# and at B=1; the MLP kernel reading a given selection
+# ---------------------------------------------------------------------------
+
+FULL_SELECT = {"sa0": (6272, 512, 0.05, 0.5), "sa1": (512, 128, 0.3, 0.4)}  # N, S, r, half-width
+
+
+def _select_inputs(case):
+    """-> (xyz, cent, radius): numpy-made, on the CPU."""
+    if case == "spread":
+        xyz, _, cent = _spread_inputs(18)[:3]
+        return xyz, cent, SPREAD_R
+    if case in select_cases.CASES:
+        return (*map(torch.from_numpy, select_cases.select_case(case)), select_cases.RADIUS)
+    stage, b = case.split("_b")
+    n, s, r, half = FULL_SELECT[stage]
+    xyz = np.random.default_rng(22).uniform(-half, half, (int(b), n, 3)).astype(np.float32)
+    return torch.from_numpy(xyz), torch.from_numpy(xyz[:, :s].copy()), r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(select_cases.CASES) + ["spread", "sa0_b16", "sa0_b1",
+                                                              "sa1_b16", "sa1_b1"])
+def test_sa_select_kernel_matches_plain(cuda, case):
+    """idx and count equal to the plain version's (on the card, by rows)."""
+    xyz, cent, r = _select_inputs(case)
+    b, n, _ = xyz.shape
+    before = ops.LAUNCHES_BY_SHAPE[("sa_select", b, n, cent.shape[1])]
+    idx, count = ops.sa_select(xyz.to(cuda), cent.to(cuda), r)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES_BY_SHAPE[("sa_select", b, n, cent.shape[1])] == before + 1
+    ref = [ops.sa_select_plain(xyz[i:i + 4].to(cuda), cent[i:i + 4].to(cuda), r)
+           for i in range(0, b, 4)]
+    assert torch.equal(idx, torch.cat([t[0] for t in ref]))
+    assert torch.equal(count, torch.cat([t[1] for t in ref]))
+    assert (count > 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sa_mlp_kernel_reads_a_given_selection(cuda, dtype):
+    """With a selection given, only the MLP kernel launches, and it computes
+    the plain MLP over that selection; an exact stage launches both."""
+    args = _sa_inputs(21)
+    xyz, feat, cent, w = _stage_args(args, "cpu", dtype)
+    idx, count = ops.sa_select_plain(xyz, cent, 0.2)
+    ref = ops.sa_mlp_plain(xyz, feat, cent, w, idx, count)
+    before = dict(ops.LAUNCHES)
+    out, out_idx = ops.sa_kernel(*_stage_args(args, cuda, dtype), 0.2,
+                                 selection=(idx.to(cuda), count.to(cuda)))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["sa"] == before["sa"] + 1 and ops.LAUNCHES["sa_select"] == before["sa_select"]
+    assert torch.equal(out_idx.cpu(), idx)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    scale = max(1.0, ref.abs().max().item())
+    assert (out.cpu() - ref).abs().max().item() <= tol * scale
+    ops.sa_stage(*_stage_args(args, cuda, dtype), 0.2, impl="v8", centroids_in_cloud=True)
+    assert ops.LAUNCHES["sa_select"] == before["sa_select"] + 1
+    assert ops.LAUNCHES["sa"] == before["sa"] + 2
+
+
+@pytest.mark.cuda
+def test_sa_select_refuses_a_cloud_beyond_shared_memory(cuda):
+    n = ops.SELECT_MAX_POINTS + 1
+    xyz = torch.zeros(1, n, 3, device=cuda)
+    with pytest.raises(ValueError, match="SELECT_MAX_POINTS"):
+        ops.sa_select(xyz, xyz[:, :8].contiguous(), 0.1)
+    args = _stage_args(_sa_inputs(23, b=1, n=n, s=8), cuda)
+    with pytest.raises(ValueError, match="SELECT_MAX_POINTS"):
+        ops.sa_stage(*args, radius=0.1, impl="v8", centroids_in_cloud=True)
+    plan = ops.sa_select_plan(1, ops.SELECT_MAX_POINTS, 512)
+    assert plan["blocks_per_sm"] >= 1 and plan["smem_bytes"] == 12 * ops.SELECT_MAX_POINTS
+
+
+def test_sa_timing_refuses_without_a_card():
+    """CPU: the SA timing script measures nothing without a CUDA device."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from mpinets_torch.kernels import sa_timing
+
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        sa_timing.main(["--batch", "1"])
 
 
 def _plain_ops(monkeypatch):

@@ -31,6 +31,8 @@ from mpinets_torch.kernels import pointnet as tpn  # noqa: E402
 from mpinets_tpu.kernels import pallas_ops  # noqa: E402
 from mpinets_tpu.kernels import pointnet as jpn  # noqa: E402
 
+import torch_select_cases as select_cases  # noqa: E402  (tests dir is on sys.path under pytest)
+
 torch.set_float32_matmul_precision("highest")
 
 
@@ -112,6 +114,60 @@ def test_ball_query_matches_oracle(radius):
     ours = tpn.ball_query(_t(cent), _t(xyz), radius, 128)
     np.testing.assert_array_equal(
         ours.numpy(), _np(jpn.ball_query(jnp.asarray(cent), jnp.asarray(xyz), radius, 128)))
+
+
+# ---------------------------------------------------------------------------
+# The exact ball query (sa_select): N not a multiple of 128, S not of 32,
+# counts 0, 1, 127, 128, 129 and 200, an empty chunk between two full ones,
+# points on the sphere (tests/torch_select_cases.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", select_cases.CASES)
+def test_sa_select_plain_matches_ball_query_and_pallas(case):
+    xyz, cent = select_cases.select_case(case)
+    r = select_cases.RADIUS
+    idx, count = ops.sa_select(_t(xyz), _t(cent), r)
+    assert idx.dtype == count.dtype == torch.int32 and idx.shape == cent.shape[:2] + (128,)
+    ref = _np(jpn.ball_query(jnp.asarray(cent), jnp.asarray(xyz), r, 128))
+    np.testing.assert_array_equal(idx.numpy(), ref)
+    hits = select_cases.in_ball_counts(xyz, cent)
+    np.testing.assert_array_equal(count.numpy(), np.minimum(hits, 128))
+    if case in select_cases.COUNTS:
+        for row, counts in enumerate(select_cases.COUNTS[case][1]):
+            assert hits[row, :len(counts)].tolist() == list(counts)
+    else:   # the edge cloud: 150 neighbours and the centroid itself, across an
+        # empty chunk; none; the points on the sphere
+        assert hits[0, :2].tolist() == [151, 0] and 0 < hits[0, 2] < 9
+        per_chunk = [select_cases.in_ball_counts(xyz[:, i:i + 128], cent)[0, 0]
+                     for i in (0, 128, 256)]
+        assert per_chunk[0] > 0 and per_chunk[1] == 0 and per_chunk[2] > 0
+    # the TPU kernel (v8, interpret mode): the same index sets
+    c = 1
+    feat = np.random.default_rng(1).uniform(0, 1, xyz.shape[:2] + (c,)).astype(np.float32)
+    weights = _sa_inputs(2, c=c, widths=(16, 16, 16))[3]
+    _, pidx = pallas_ops.sa_stage(
+        *map(jnp.asarray, (xyz, feat, cent, *weights)), radius=r, nsample=128,
+        compute_dtype=jnp.float32, interpret=True, impl="v8", centroids_in_cloud=True)
+    _assert_same_sets(idx.numpy(), pidx)
+
+
+@pytest.mark.parametrize("variant", ["exact", "raw", "off_cloud", "fast_bf16"])
+def test_sa_plain_is_its_two_halves(variant):
+    """sa_plain equals sa_mlp_plain over sa_select_plain's selection."""
+    xyz, feat, cent, weights = _off_cloud(15) if variant == "off_cloud" else _sa_inputs(15)
+    dtype = torch.bfloat16 if variant == "fast_bf16" else torch.float32
+    args = (_t(xyz), _t(feat), _t(cent), _weights(weights, dtype), 0.2)
+    chunks = ops.chunk_window(args[0], args[2], 2) if variant == "fast_bf16" else None
+    in_cloud, raw = variant != "off_cloud", variant == "raw"
+    whole = ops.sa_plain(*args, chunks, in_cloud, raw)
+    idx, count = ops.sa_select_plain(args[0], args[2], 0.2, chunks, variant == "fast_bf16")
+    halves = ops.sa_mlp_plain(*args[:4], idx, count, in_cloud, raw)
+    assert torch.equal(whole[1], idx)
+    for a, b in zip(whole[::2], halves if raw else (halves,)):
+        assert torch.equal(a, b)
+    assert count.max() <= 128 and (count > 0).any()
+    if variant == "off_cloud":
+        assert count[0, 3] == 0 and (idx[0, 3] == 0).all()
 
 
 # ---------------------------------------------------------------------------
@@ -209,8 +265,10 @@ def test_wrappers_reject_bad_input_and_count_only_launches():
     args = (_t(xyz), _t(feat), _t(cent), _weights(weights, torch.bfloat16))
     ops.sa_stage(*args, radius=0.3)
     ops.furthest_point_sample_with_coords(_t(xyz), 8)
-    assert ops.LAUNCHES == dict.fromkeys(("fps", "sa", "sa_raw", "sa_v3", "sa_fast", "probe_scan",
-                                          "probe_micro", "probe_wide", "probe_scratch"), 0)
+    ops.sa_select(_t(xyz), _t(cent), 0.3)
+    assert ops.LAUNCHES == dict.fromkeys(("fps", "sa_select", "sa", "sa_raw", "sa_v3", "sa_fast",
+                                          "probe_scan", "probe_micro", "probe_wide",
+                                          "probe_scratch"), 0)
     # (plain versions launch nothing)
     assert not ops.LAUNCHES_BY_SHAPE
     with pytest.raises(ValueError):

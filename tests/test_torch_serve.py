@@ -1,10 +1,11 @@
 """The port's planning server against ``mpinets_tpu.cli.serve``.
 
 Both planners run random weights at small centroid counts on the CPU and
-answer the same JSON lines: two requests and one malformed line. Their
+answer the same JSON lines: two requests and two malformed lines. Their
 draws differ (``torch.Generator`` against ``jax.random``), so the test
-holds the protocol -- response keys, trajectory length and spacing --
-and the scan cleaning, which is numpy in both and must be identical.
+holds the protocol -- response keys, trajectory length and spacing, the
+answer to a malformed request word for word -- and the scan cleaning,
+which is numpy in both and must be identical.
 """
 
 import io
@@ -40,6 +41,7 @@ def _lines():
                     "target_position": [0.4, -0.2, 0.3],
                     "target_quaternion": [0.0, 0.0, 1.0, 0.0]}),
         "{not json",
+        json.dumps({"q0": franka.NEUTRAL_Q.tolist()}),
     ]) + "\n"
 
 
@@ -65,7 +67,7 @@ def test_serve_answers_like_the_jax_server():
     ref = _answers(jserve.Planner(variables, _scan(), max_steps=STEPS, model=jmodel,
                                   fused=False), jserve)
 
-    assert len(ours) == len(ref) == 3
+    assert len(ours) == len(ref) == 4
     for a, b in zip(ours, ref):
         assert set(a) == set(b)
     for resp in ours[:2]:
@@ -75,7 +77,10 @@ def test_serve_answers_like_the_jax_server():
         lim = franka.JOINT_LIMITS
         assert ((traj >= lim[:, 0] - 1e-4) & (traj <= lim[:, 1] + 1e-4)).all()
     np.testing.assert_allclose(ours[0]["trajectory"][0], franka.NEUTRAL_Q, atol=1e-6)
-    assert ours[2]["success"] is False and "error" in ours[2]
+    # malformed requests: the same answer, error text included
+    for bad_ours, bad_ref in zip(ours[2:], ref[2:]):
+        assert bad_ours["success"] is False and bad_ours["error"]
+        assert bad_ours == bad_ref
 
 
 def test_main_with_random_init(tmp_path, monkeypatch, capsys):
@@ -84,5 +89,5 @@ def test_main_with_random_init(tmp_path, monkeypatch, capsys):
     monkeypatch.setattr("sys.stdin", io.StringIO(_lines()))
     tserve.main(["--random-init", "3", str(scan), "--max-steps", "1", "--device", "cpu"])
     answers = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
-    assert [a.get("num_steps") for a in answers] == [1, 1, None]
-    assert "error" in answers[2]
+    assert [a.get("num_steps") for a in answers] == [1, 1, None, None]
+    assert "error" in answers[2] and "error" in answers[3]

@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``mpinets_torch/csrc/`` (logging each SA
-instantiation's registers, spills and launch plan, and counting the
-tensor-core ``HMMA`` instructions in the built SASS where the toolkit has
-``cuobjdump``), holds each kernel against its plain PyTorch version at the
-main path's shapes -- FPS, the exact ball query (``sa_select``, also at
+Builds the CUDA kernels from ``mpinets_torch/csrc/`` (logging each SA and
+FPS instantiation's registers and spills, and the launch plans, and
+counting the tensor-core ``HMMA`` instructions in the built SASS where the
+toolkit has ``cuobjdump``), holds each kernel against its plain PyTorch
+version at the main path's shapes -- FPS (each plan the main paths use, at
+B=1, 3 and 256, on the assembled cloud and on a cloud of exact ties), the
+exact ball query (``sa_select``, also at
 B=1), the exact SA stage (the ball query, then the MLP kernel reading its
 selection), its raw-block output (train path), its off-cloud branch
 (``sa_impl="v3"``) and the chunk-window SA0, and every SA variant on a
@@ -40,7 +42,8 @@ before each main path and read after it. The line before the last is a
 JSON object with one entry per kernel and (B, N, S) the main paths launched
 it at: ``ms`` times the kernel alone (an SA MLP kernel on the exact path
 reading a given selection), ``launches`` counts that kernel at that shape
-over the main paths;
+over the main paths (an FPS entry also has its ``plan``, [threads, points a
+thread, cluster], and ``ns_per_pick``, ``ms`` over npoint - 1 picks);
 a probe kernel has one entry per timed probe of the session (a scan mode
 stands for every TPU script probe that computes the same function), its
 launches in the timed runs of the probe session.
@@ -204,6 +207,13 @@ def tabletop_scan(rng):
     return np.concatenate(parts).astype(np.float32)
 
 
+def tie_cloud(rng, b, n):
+    """A [b, n, 3] f32 cloud on a 5^3 grid of step 0.5: most points share
+    their position with others and many lie at equal distances, so FPS
+    picks are decided by the lowest-index rule."""
+    return (rng.integers(-2, 3, (b, n, 3)) * 0.5).astype("float32")
+
+
 def sa_data_ops(idx, n, chunks, p, widths):
     """Operations this run's data needs for one SA call: f32 distance tests
     up to the 128th hit (or the whole candidate list) and the MLP over each
@@ -234,8 +244,10 @@ def kernel_resources(log_text):
         if m:
             t = re.search(r"([a-z][a-z_]*?_kernel(?:_mma)?)"
                           r"(?:ILb([01])ELb([01])ELb([01])E|ILi(\d+)E)?", m.group(1))
+            fps = re.search(r"fps_kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])E", m.group(1))
             full = m.group(1)
-            name = full if t is None else t.group(1) + (
+            name = (f"fps_kernel<{'f32' if fps.group(1) == 'f' else 'bf16'}, {fps.group(2)}, "
+                    f"cluster={fps.group(3)}>") if fps else full if t is None else t.group(1) + (
                 f"<raw={t.group(2)}, point0={t.group(3)}, fast={t.group(4)}>"
                 if t.group(2) is not None
                 else f"<{t.group(5)}>" if t.group(5) is not None
@@ -532,11 +544,15 @@ def time_at_shape(key, launches, cache, xyz, feat, weights, radii, smi):
     ms = cuda_ms(run, 5)
     plain_ms = cuda_ms(plain, 1)
     bnd, by = bound(nbytes, f32_ops, mlp_ops)
+    extra = {}
+    if k == "fps":
+        extra = {"plan": list(ops.fps_plan(b, n)), "ns_per_pick": ms * 1e6 / max(s - 1, 1)}
     log(f"{k} B={b} N={n} S={s}: {launches} launches; kernel {ms:.4f} ms, plain {plain_ms:.3f}"
-        f" ms, bound {bnd:.4f} ms ({by}), max |err| {err:.3e} [{smi}]")
+        f" ms, bound {bnd:.4f} ms ({by}), max |err| {err:.3e}"
+        + "".join(f", {key} {val}" for key, val in extra.items()) + f" [{smi}]")
     return {"name": f"{k} B={b} N={n} S={s}", "route": "cuda", "source": CUDA_SOURCES[k],
             "replaces": TPU_SOURCES[k], "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by, "library_ms": None}
+            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by, "library_ms": None, **extra}
 
 
 def main() -> int:
@@ -595,11 +611,13 @@ def main() -> int:
         resources.update(kernel_resources((ops.BUILD_DIR / f"{name}.log").read_text()))
     for kname, res in resources.items():
         log(f"  {kname}: {res}")
-    # the inference tensor-core MLP (exact and fast) and every ball-query
-    # instantiation: no spill
+    # the inference tensor-core MLP (exact and fast), every ball-query and
+    # every FPS instantiation: no spill
     for kname in ("sa_kernel_mma<raw=0, point0=0, fast=0>",
                   "sa_kernel_mma<raw=0, point0=0, fast=1>",
-                  *(f"sa_select_kernel<{cpw}>" for cpw in (1, 2, 4))):
+                  *(f"sa_select_kernel<{cpw}>" for cpw in (1, 2, 4)),
+                  *(f"fps_kernel<{t}, {p_}, cluster={int(c)}>" for t in ("f32", "bf16")
+                    for c in (False, True) for p_ in ((8,) if c else ops.FPS_POINTS_PER_THREAD))):
         res = resources.get(kname, {})
         if res.get("spill_stores", 1) or res.get("spill_loads", 1):
             raise AssertionError(f"{kname} spills (or is missing): {res}")
@@ -629,6 +647,11 @@ def main() -> int:
     for b_ in (1, 3, 10, 64, B):
         for n_, s_ in ((6272, 512), (512, 128)):
             log(f"  launch plan sa_select B={b_} N={n_} S={s_}: {ops.sa_select_plan(b_, n_, s_)}")
+    for b_, n_, s_ in ((1, 6272, 512), (3, 6272, 512), (10, 6272, 512), (64, 6272, 512),
+                       (B, 6272, 512), (B, 512, 128), (4, 192, 16), (4, 16, 8)):
+        plan = ops.fps_plan(b_, n_)
+        log(f"  launch plan fps B={b_} N={n_} S={s_}: {plan}, "
+            f"{ops.fps_plan_info(n_, s_, plan, bf16)}")
     ggen = torch.Generator(dev).manual_seed(SEED)
     problem = random_problem_batch(ggen, B, device=dev)
     with torch.no_grad():
@@ -639,20 +662,38 @@ def main() -> int:
     q_norm = normalize_franka_joints(problem.q0)
 
     # ---- 1. each kernel against its plain version -------------------------
-    phase("FPS kernel vs plain")
+    phase("FPS kernel vs plain (each main-path plan at B=1, 3 and 256; assembled and tie clouds)")
     cent = {}
-    for label, pts, npoint in (("SA0", xyz, 512), ("SA1", None, 128)):
-        if pts is None:
-            pts = cent["SA0"]
-        ref_idx, ref_c = by_rows(lambda t: ops.fps_plain(t, npoint), pts)
-        for impl in ("v1", "v2"):
-            idx, coords = ops.furthest_point_sample_with_coords(pts, npoint, impl=impl)
-            torch.cuda.synchronize()
-            if not torch.equal(idx, ref_idx) or not torch.equal(coords, ref_c):
-                bad = (idx != ref_idx).any(-1).sum().item()
-                raise AssertionError(f"FPS {label} impl={impl}: {bad} rows differ from plain")
-        cent[label] = coords
-        log(f"FPS [{pts.shape[0]},{pts.shape[1]}]->{npoint}: idx equal (v1, v2)")
+    ties = torch.from_numpy(tie_cloud(np.random.default_rng(SEED), B, xyz.shape[1])).to(dev)
+    for cloud_label, cloud in (("assembled", xyz), ("ties", ties)):
+        for b_ in (1, 3, B):
+            pts = cloud[:b_]
+            for label, npoint in (("SA0", 512), ("SA1", 128)):
+                ref_idx, ref_c = by_rows(lambda t: ops.fps_plain(t, npoint), pts)
+                for impl in ("v1", "v2"):
+                    idx, coords = ops.furthest_point_sample_with_coords(pts, npoint, impl=impl)
+                    torch.cuda.synchronize()
+                    if not torch.equal(idx, ref_idx) or not torch.equal(coords, ref_c):
+                        bad = (idx != ref_idx).any(-1).sum().item()
+                        raise AssertionError(f"FPS {cloud_label} {label} B={b_} impl={impl}: "
+                                             f"{bad} rows differ from plain")
+                log(f"FPS {cloud_label} [{b_},{pts.shape[1]}]->{npoint}, plan "
+                    f"{tuple(ops.fps_plan(b_, pts.shape[1]))}: idx and coords equal (v1, v2)")
+                if cloud_label == "assembled" and b_ < B and label == "SA0":
+                    # every cluster size the kernel takes: equal to plain, and timed
+                    times = {}
+                    for c in ops.FPS_CLUSTERS:
+                        plan = ops.fps_plan(b_, pts.shape[1], cluster=c)
+                        with mock.patch.object(ops, "fps_plan", lambda *_, plan=plan: plan):
+                            run = lambda: ops.furthest_point_sample_with_coords(pts, npoint)
+                            if not all(map(torch.equal, run(), (ref_idx, ref_c))):
+                                raise AssertionError(f"FPS B={b_} plan {plan} differs from plain")
+                            times[tuple(plan)] = cuda_ms(run, 5)
+                    log(f"FPS [{b_},{pts.shape[1]}]->{npoint} by plan, ms (equal to plain): "
+                        + ", ".join(f"{k} {v:.4f}" for k, v in times.items()) + f" [{smi}]")
+                if cloud_label == "assembled" and b_ == B:
+                    cent[label] = coords
+                pts = coords
 
     phase("ball-query kernel vs plain (SA0, SA1; B=256 and B=1; the count spread)")
     sgen = torch.Generator(dev).manual_seed(SEED + 6)
@@ -868,7 +909,8 @@ def main() -> int:
         run = dict(ops.LAUNCHES_BY_SHAPE)
         main_launches.update(run)
         per_kernel = {k: v for k, v in ops.LAUNCHES.items() if v}
-        log(f"{name}: launches {per_kernel}")
+        log(f"{name}: launches {per_kernel}; FPS by plan "
+            f"{ {tuple(plan): v for plan, v in ops.FPS_LAUNCHES_BY_PLAN.items()} }")
         for k in kernels:
             if not ops.LAUNCHES[k]:
                 raise AssertionError(f"{name}: kernel {k} was not launched")

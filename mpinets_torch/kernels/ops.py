@@ -4,7 +4,8 @@ PyTorch versions, and the loader that builds the CUDA sources.
 Port of ``mpinets_tpu/kernels/pallas_ops.py``:
 
 * :func:`furthest_point_sample_with_coords` -- ``csrc/fps.cu``, replacing
-  ``_fps_kernel`` / ``_fps_kernel_v2``.
+  ``_fps_kernel`` / ``_fps_kernel_v2``, launched by the plan
+  :func:`fps_plan` gives for (B, N).
 * :func:`sa_stage` -- ``csrc/sa.cu`` (exact grouping: the ball-query
   kernel, :func:`sa_select`, then an MLP kernel that reads its selection),
   replacing ``_sa_kernel_v8`` (``impl="v8"``, with its ``return_raw``
@@ -29,7 +30,8 @@ launches the kernel or raises; it never falls back. Each launch adds one to
 kernel: ``fps``; ``sa_select`` (the exact ball query); the SA MLP kernel by
 variant, ``sa`` (exact, in-cloud), ``sa_raw`` (exact, with the raw block),
 ``sa_v3`` (exact, off-cloud) or ``sa_fast`` (its own window scan). An exact
-SA stage counts one ``sa_select`` and one MLP launch. The TPU probe kernels
+SA stage counts one ``sa_select`` and one MLP launch; an FPS launch also
+counts under its plan in :data:`FPS_LAUNCHES_BY_PLAN`. The TPU probe kernels
 (``csrc/probes.cu``, wrapped in :mod:`mpinets_torch.probes`) count as
 ``probe_scan``, ``probe_micro``, ``probe_wide`` and ``probe_scratch``.
 
@@ -66,7 +68,8 @@ NVCC_FLAGS = (
 #: Neighbours per centroid and points per chunk, fixed by both kernels.
 NSAMPLE = 128
 CHUNK = 128
-#: Largest cloud the FPS kernel takes (1024 threads x 8 points each).
+#: Largest cloud the FPS kernel takes (each block keeps the row's copy and
+#: its picks in shared memory: 128 KB at most at 8192 points).
 FPS_MAX_POINTS = 8192
 #: Largest cloud the ball-query kernel stages in shared memory (x, y, z f32:
 #: 192 KB, one block per SM; 75 KB and two or more at the 6272-point cloud).
@@ -79,11 +82,14 @@ LAUNCHES: Dict[str, int] = {"fps": 0, "sa_select": 0, "sa": 0, "sa_raw": 0, "sa_
 #: The same launches by (kernel, B, N, S): batch, cloud size, and samples or
 #: centroids.
 LAUNCHES_BY_SHAPE: Counter = Counter()
+#: The FPS launches by :class:`FpsPlan`.
+FPS_LAUNCHES_BY_PLAN: Counter = Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "mpn_fps": [_P, _I, _I, _I, _I, _P, _P, _P],
+    "mpn_fps": [_P] + [_I] * 7 + [_P] * 3,
+    "mpn_fps_plan": [_I] * 6 + [_P] * 3,
     "mpn_sa": ([_P] * 4 + [_I] + [_P] * 10 + [_I] * 8 + [ctypes.c_float, _I, _I] + [_P] * 4
                + [_I, _P]),
     "mpn_sa_plan": [_I] * 9 + [_P] * 3,
@@ -101,6 +107,7 @@ def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     LAUNCHES_BY_SHAPE.clear()
+    FPS_LAUNCHES_BY_PLAN.clear()
 
 
 def _count(name: str, b: int, n: int, s: int) -> None:
@@ -216,6 +223,101 @@ def fps_plain(xyz: torch.Tensor, npoint: int) -> Tuple[torch.Tensor, torch.Tenso
     return idx, pointnet.gather_points(xyz, idx)
 
 
+class FpsPlan(NamedTuple):
+    """A launch of the FPS kernel: each batch row runs on ``cluster`` blocks
+    of ``threads`` threads, each thread holding ``points_per_thread`` points
+    in registers."""
+
+    threads: int
+    points_per_thread: int
+    cluster: int
+
+
+#: Points a thread, and blocks a row, the FPS kernel is built for; a
+#: cluster's blocks hold 8 points a thread.
+FPS_POINTS_PER_THREAD = (1, 2, 4, 8)
+FPS_CLUSTERS = (1, 2, 4, 8)
+#: The largest cluster the plan picks: at 6272 points a cluster of 8 took
+#: 2% longer than one of 4 at B=1 and 3 on the H100 (``chip_smoke.py``,
+#: phase "FPS kernel vs plain"), so 8 is only there to be compared.
+FPS_PLAN_MAX_CLUSTER = 4
+#: Threads a block aims at; a larger share of a row goes to more points a
+#: thread (up to 8) before more warps.
+FPS_BLOCK_THREADS = 128
+#: A cloud of at least this many points is split over a cluster of blocks
+#: a row, up to FPS_PLAN_MAX_CLUSTER, as many as keep B x cluster within FPS_SMS (the SMs of an H100
+#: SXM; on a card with fewer the clusters take more than one wave): one
+#: row's chain of picks then runs on several SMs. The served clouds are
+#: 6272 points (split) and 512, 192 and 16 (one block); no size between
+#: 512 and 6272 was timed, so the threshold's place there is unmeasured.
+FPS_CLUSTER_MIN_POINTS = 2048
+FPS_SMS = 132
+
+
+def _fps_max_threads(points_per_thread: int) -> int:
+    """Threads a block may have (``max_threads`` in ``csrc/fps.cu``): 8
+    points a thread are 32 registers of state, so those blocks stop at 800."""
+    return 800 if points_per_thread == 8 else 1024
+
+
+def fps_plan_ok(n: int, plan: FpsPlan) -> bool:
+    """Whether the kernel takes this plan for N points: the plan's points
+    cover N, a cluster's blocks hold 8 points a thread, and the warps of a
+    row's blocks give at most 32 records, one a lane of the final reduction.
+    ``plan_ok`` in ``csrc/fps.cu`` is the same rule on the device's side;
+    ``tests/test_torch_cuda.py`` holds the two equal."""
+    threads, p, cluster = plan
+    return (p in FPS_POINTS_PER_THREAD and cluster in FPS_CLUSTERS
+            and (cluster == 1 or p == 8)
+            and threads % 32 == 0 and 32 <= threads <= _fps_max_threads(p)
+            and threads // 32 * cluster <= 32 and 1 <= n <= threads * p * cluster)
+
+
+def fps_plan(b: int, n: int, cluster: Optional[int] = None) -> FpsPlan:
+    """The FPS kernel's launch for B rows of N points: blocks a row (a
+    cluster for a large cloud at small B), then the fewest points a thread
+    that keep a block within :data:`FPS_BLOCK_THREADS` threads and a row
+    within 32 warps, else 8 and as many warps as needed (8 in a cluster).
+    ``cluster`` (one of :data:`FPS_CLUSTERS`) sets the blocks a row instead,
+    the next larger size where its blocks cannot hold N, so that plans can
+    be compared. Raises for a shape no plan takes."""
+    if b < 1 or not 1 <= n <= FPS_MAX_POINTS:
+        raise ValueError(f"FPS takes 1 <= N <= {FPS_MAX_POINTS} (FPS_MAX_POINTS) and B >= 1; "
+                         f"got B={b}, N={n}")
+    if cluster is None:
+        cluster = 1
+        if n >= FPS_CLUSTER_MIN_POINTS:
+            cluster = max(c for c in FPS_CLUSTERS
+                          if c == 1 or (c <= FPS_PLAN_MAX_CLUSTER and b * c <= FPS_SMS))
+    elif cluster not in FPS_CLUSTERS:
+        raise ValueError(f"FPS runs a row on {FPS_CLUSTERS} blocks; got cluster={cluster}")
+    # a cloud above one block's 800 x 8 points takes a larger cluster
+    for c in FPS_CLUSTERS[FPS_CLUSTERS.index(cluster):]:
+        per_block = -(-n // c)
+        target = min(FPS_BLOCK_THREADS, 32 * (32 // c))
+        p = 8 if c > 1 else next(p for p in FPS_POINTS_PER_THREAD
+                                 if per_block <= target * p or p == 8)
+        plan = FpsPlan(32 * -(-per_block // (32 * p)), p, c)
+        if fps_plan_ok(n, plan):
+            return plan
+    raise AssertionError(f"no FPS plan for N={n} from cluster={cluster}")  # N <= FPS_MAX_POINTS
+
+
+def fps_plan_info(n: int, npoint: int, plan: FpsPlan, dtype=torch.float32) -> Dict[str, int]:
+    """What ``plan`` gets on the current CUDA device for N points of
+    ``dtype`` and ``npoint`` picks: registers a thread, blocks that fit on
+    one SM, and (cluster > 1) clusters that can run at once; raises when the
+    kernel does not take the plan or the device cannot run it."""
+    out = [ctypes.c_int() for _ in range(3)]
+    rc = _library("fps").mpn_fps_plan(int(dtype == torch.bfloat16), n, npoint, *plan,
+                                      *map(ctypes.byref, out))
+    info = dict(zip(("registers", "blocks_per_sm", "max_clusters"), (v.value for v in out)))
+    if rc != 0 or not info["blocks_per_sm"] or (plan.cluster > 1 and not info["max_clusters"]):
+        raise RuntimeError(f"the FPS kernel cannot run {plan} for N={n}, npoint={npoint} "
+                           f"({dtype}): CUDA error {rc}, {info}")
+    return info
+
+
 def furthest_point_sample_with_coords(
     xyz: torch.Tensor, npoint: int, impl: str = "v1"
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -224,7 +326,9 @@ def furthest_point_sample_with_coords(
     Same function as :func:`mpinets_torch.kernels.pointnet.furthest_point_sample`
     (slot 0 is index 0; greedy max-min-distance picks; first-index ties),
     also returning the picked coordinates. ``impl`` "v1" and "v2" name the
-    two TPU kernels and launch the same CUDA kernel.
+    two TPU kernels and launch the same CUDA kernel, with the launch
+    :func:`fps_plan` gives for (B, N); a launch the device refuses raises,
+    naming the plan.
     """
     if impl not in ("v1", "v2"):
         raise ValueError(f"unknown FPS impl {impl!r}")
@@ -232,15 +336,19 @@ def furthest_point_sample_with_coords(
         return fps_plain(xyz, npoint)
     _check(xyz, "xyz", (torch.float32, torch.bfloat16), (None, None, 3))
     b, n, _ = xyz.shape
-    if b < 1 or not 1 <= npoint <= n or n > FPS_MAX_POINTS:
-        raise ValueError(f"FPS takes 1 <= npoint <= N <= {FPS_MAX_POINTS}, B >= 1; "
-                         f"got B={b}, N={n}, npoint={npoint}")
+    plan = fps_plan(b, n)
+    if not 1 <= npoint <= n:
+        raise ValueError(f"FPS takes 1 <= npoint <= N; got N={n}, npoint={npoint}")
     idx = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
     coords = torch.empty((b, npoint, 3), dtype=torch.float32, device=xyz.device)
-    _launch("fps", "mpn_fps", xyz.device, xyz.data_ptr(),
-            int(xyz.dtype == torch.bfloat16), b, n, npoint,
-            idx.data_ptr(), coords.data_ptr())
+    try:
+        _launch("fps", "mpn_fps", xyz.device, xyz.data_ptr(),
+                int(xyz.dtype == torch.bfloat16), b, n, npoint, *plan,
+                idx.data_ptr(), coords.data_ptr())
+    except RuntimeError as e:
+        raise RuntimeError(f"FPS {plan} for B={b}, N={n}: {e}") from e
     _count("fps", b, n, npoint)
+    FPS_LAUNCHES_BY_PLAN[plan] += 1
     return idx, coords.to(xyz.dtype)
 
 

@@ -9,7 +9,9 @@ The second form imports ``mpinets_torch`` from OTHER_CHECKOUT: a script run
 by its path puts its own directory, not the repository root, first on
 ``sys.path``. The inputs are ``chip_smoke.py``'s: random weights from the
 seed (bf16), B=256 synthetic tabletop problems and their assembled
-6272-point cloud, FPS centroids; a smaller batch takes the first rows. A
+6272-point cloud, FPS centroids; a smaller batch takes the first rows; FPS
+is also timed on the small-cloud trainer's shapes (192 -> 16 on the first
+192 points, then 16 -> 8). A
 stage's time is the mean of 5 calls by CUDA events after a warm-up, queued
 behind a device busy-wait (all of the stage's launches: on the exact path
 the ball query and the MLP). The rollout: B=256, ``fast_grouping=4``,
@@ -84,6 +86,11 @@ def main(argv=None) -> None:
         f0 = ops.sa_stage(xyz, feat, c0, w0, r0, impl="v8", centroids_in_cloud=True)[0]
         times[f"fps 6272->512 B={b}"] = _ms(lambda: ops.furthest_point_sample_with_coords(xyz, 512))
         times[f"fps 512->128 B={b}"] = _ms(lambda: ops.furthest_point_sample_with_coords(c0, 128))
+        # the small-cloud trainer's shapes (64 + 96 + 32 points, SA 16/8)
+        small = xyz[:, :192].contiguous()
+        s0 = ops.furthest_point_sample_with_coords(small, 16)[1]
+        times[f"fps 192->16 B={b}"] = _ms(lambda: ops.furthest_point_sample_with_coords(small, 16))
+        times[f"fps 16->8 B={b}"] = _ms(lambda: ops.furthest_point_sample_with_coords(s0, 8))
         for label, stage_args, w, r in (("SA0", (xyz, feat, c0), w0, r0),
                                         ("SA1", (c0, f0, c1), w1, r1)):
             for name, kw in (("sa", dict(impl="v8", centroids_in_cloud=True)),

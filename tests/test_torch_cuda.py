@@ -8,9 +8,10 @@ for. The file imports no JAX, so it also runs on a machine without it:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -p no:cacheprovider
 
 Tolerances: FPS indices and coordinates exact (the distance code is never
-contracted into FMAs); SA index arrays and raw blocks exact; SA features
-1e-5 in f32 (sums in another order) and 1e-2 in bf16 (one bf16 ulp of an
-activation; relative to max(1, max|f|) in the tensor-core cases); the fused
+contracted into FMAs), for every class of launch plan; SA index arrays and
+raw blocks exact; SA features 1e-5 in f32 (sums in another order) and 1e-2
+in bf16 (one bf16 ulp of an activation; relative to max(1, max|f|) in the
+tensor-core cases); the fused
 train path's f32 parameter gradients, kernels against plain versions,
 atol 2e-5 + 1e-4 max|g| (``test_fused_train.py``); the TPU probe kernels
 (``csrc/probes.cu``) bit-equal to their plain versions, which round and sum
@@ -27,7 +28,8 @@ from mpinets_torch.model import fused_train
 from mpinets_torch.model.policy import MotionPolicyNetwork
 from mpinets_torch.probes import design, micro, scan, session
 
-import torch_select_cases as select_cases  # (tests dir is on sys.path under pytest)
+import torch_fps_cases as fps_cases  # (tests dir is on sys.path under pytest)
+import torch_select_cases as select_cases
 
 
 @pytest.fixture
@@ -60,17 +62,62 @@ def _stage_args(args, device, dtype=torch.bfloat16):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("impl", ["v1", "v2"])
-def test_fps_kernel_matches_plain(cuda, dtype, impl):
-    rng = np.random.default_rng(10)
-    xyz = torch.from_numpy(rng.normal(size=(4, 1000, 3)).astype(np.float32)).to(dtype)
-    before = ops.LAUNCHES["fps"]
-    idx, coords = ops.furthest_point_sample_with_coords(xyz.to(cuda), 100, impl=impl)
-    torch.cuda.synchronize()
-    assert ops.LAUNCHES["fps"] == before + 1
-    ref_idx, ref_coords = ops.fps_plain(xyz, 100)
-    np.testing.assert_array_equal(idx.cpu().numpy(), ref_idx.numpy())
-    assert torch.equal(coords.cpu(), ref_coords)
+@pytest.mark.parametrize("kind", fps_cases.CARD_KINDS)
+@pytest.mark.parametrize("case", fps_cases.CARD_CASES, ids=lambda c: "B{}-N{}-S{}".format(*c))
+def test_fps_kernel_matches_plain(cuda, case, kind, dtype):
+    """Every class of plan the wrapper picks (tests/torch_fps_cases.py), on
+    clouds with exact ties and duplicates and on a normal cloud whose
+    distances round: both impls equal to the plain version, one launch
+    each, counted under the plan."""
+    b, n, npoint = case
+    xyz = torch.from_numpy(fps_cases.cloud(kind, b, n, seed=n + b)).to(dtype)
+    ref_idx, ref_coords = ops.fps_plain(xyz, npoint)
+    plan = ops.fps_plan(b, n)
+    for impl in ("v1", "v2"):
+        before = ops.LAUNCHES["fps"], ops.FPS_LAUNCHES_BY_PLAN[plan]
+        idx, coords = ops.furthest_point_sample_with_coords(xyz.to(cuda), npoint, impl=impl)
+        torch.cuda.synchronize()
+        assert (ops.LAUNCHES["fps"], ops.FPS_LAUNCHES_BY_PLAN[plan]) == (before[0] + 1,
+                                                                          before[1] + 1)
+        np.testing.assert_array_equal(idx.cpu().numpy(), ref_idx.numpy())
+        assert coords.dtype == dtype and torch.equal(coords.cpu(), ref_coords)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ties", "normal"])
+@pytest.mark.parametrize("case", fps_cases.CLUSTER_CASES, ids=lambda c: "B{}-N{}-S{}".format(*c))
+def test_fps_kernel_every_cluster_matches_plain(cuda, monkeypatch, case, kind):
+    """Every cluster size the kernel takes, the one the plan never picks too."""
+    b, n, npoint = case
+    xyz = torch.from_numpy(fps_cases.cloud(kind, b, n, seed=n + b))
+    ref_idx, ref_coords = ops.fps_plain(xyz, npoint)
+    for c in ops.FPS_CLUSTERS:
+        plan = ops.fps_plan(b, n, cluster=c)
+        monkeypatch.setattr(ops, "fps_plan", lambda *_, plan=plan: plan)
+        before = ops.FPS_LAUNCHES_BY_PLAN[plan]
+        idx, coords = ops.furthest_point_sample_with_coords(xyz.to(cuda), npoint)
+        torch.cuda.synchronize()
+        assert ops.FPS_LAUNCHES_BY_PLAN[plan] == before + 1, plan
+        np.testing.assert_array_equal(idx.cpu().numpy(), ref_idx.numpy(), err_msg=str(plan))
+        assert torch.equal(coords.cpu(), ref_coords), plan
+        monkeypatch.undo()
+
+
+@pytest.mark.cuda
+def test_fps_plan_rule_matches_the_kernel(cuda):
+    """ops.fps_plan_ok, which chooses plans, and plan_ok in csrc/fps.cu,
+    which refuses them, take the same plans."""
+    for n in (1, 100, 2048, 6272, 8192):
+        for cluster in (1, 2, 3, 4, 8, 16):
+            for p in (1, 2, 3, 4, 8, 16):
+                for threads in (*range(0, 1056 + 1, 32), 100):
+                    plan = ops.FpsPlan(threads, p, cluster)
+                    try:
+                        ops.fps_plan_info(n, 1, plan)
+                        taken = True
+                    except RuntimeError as e:
+                        taken = "CUDA error 1," not in str(e)  # cudaErrorInvalidValue: refused
+                    assert taken == ops.fps_plan_ok(n, plan), (n, plan)
 
 
 @pytest.mark.cuda

@@ -13,7 +13,10 @@ exact ball query (``sa_select``, also at
 B=1), the exact SA stage (the ball query, then the MLP kernel reading its
 selection), its raw-block output (train path), its off-cloud branch
 (``sa_impl="v3"``) and the chunk-window SA0, and every SA variant on a
-cloud whose neighbour counts cross the bf16 kernel's 16-row tiles -- and
+cloud whose neighbour counts cross the bf16 kernel's 16-row tiles (at SA0
+widths, 49 centroids whose packed tiles hold 1 to 16 centroids), each bf16
+variant bit-equal under 8, 16 and 32 centroids a block, as fits (also the
+exact and fast SA0 at B=256, timed by centroids per block) -- and
 the train path's parameter gradients, kernels against plain versions. It
 then checks the
 full-width forward against the plain paths and drives, with random weights
@@ -41,7 +44,8 @@ non-zero, printing no result, when there is no CUDA device or when the
 before each main path and read after it. The line before the last is a
 JSON object with one entry per kernel and (B, N, S) the main paths launched
 it at: ``ms`` times the kernel alone (an SA MLP kernel on the exact path
-reading a given selection), ``launches`` counts that kernel at that shape
+reading a given selection; ``cpb``, its plan's centroids per block),
+``launches`` counts that kernel at that shape
 over the main paths (an FPS entry also has its ``plan``, [threads, points a
 thread, cluster], and ``ns_per_pick``, ``ms`` over npoint - 1 picks);
 a probe kernel has one entry per timed probe of the session (a scan mode
@@ -72,6 +76,12 @@ TRAIN_CHUNK = 5           # train steps per timed chunk
 GRAD_B = 8                # batch of the train-gradient check
 PLAIN_ROWS = 16           # rows per plain-version call, to bound its memory
 SPREAD = (0, 1, 15, 16, 17, 31, 127, 128, 200)  # neighbours per centroid, across the tiles
+# SA0's spread: 49 centroids, so packed tiles of 16 rows hold 1 to 16
+# centroids in blocks of 8, 16 and 32 (tests/test_torch_cuda.py's SPREAD_SA0)
+SPREAD_SA0 = (0, 1, 1, 0, 1, 0, 1, 1, 0, 1, 1, 0, 1, 0, 0, 1, 128,
+              2, 3, 5, 13, 15, 16, 17, 31, 200, 3, 5, 2, 1, 0, 13, 16,
+              17, 31, 15, 16, 0, 1, 2, 3, 5, 13, 1, 1, 128, 0, 200, 3)
+SA_MAIN_BATCHES = (1, 3, 10, 64, 256)   # the batches the main paths run the SA stages at
 F32_TOL = 1e-5            # kernel vs plain, f32: sums in another order
 BF16_TOL = 1e-2           # kernel vs plain, bf16: a 1-ulp flip of a bf16 activation
 FWD_F32_TOL = 2e-5        # full forward, kernel path vs plain policy, f32
@@ -290,18 +300,18 @@ def sass_hmma(lib):
     return counts
 
 
-def spread_cloud(gen, radius, c, b, dev):
-    """A cloud whose centroid i, at (i, 0, 0), has SPREAD[i] points inside
+def spread_cloud(gen, radius, c, b, dev, spread=SPREAD):
+    """A cloud whose centroid i, at (i, 0, 0), has spread[i] points inside
     its ball (0.9 of the radius at most), shuffled among 400 points far from
     every ball; features uniform in [0, 1). -> (xyz, features, centroids)."""
     import torch
 
-    cent = torch.tensor([(float(i), 0.0, 0.0) for i in range(len(SPREAD))], device=dev)
+    cent = torch.tensor([(float(i), 0.0, 0.0) for i in range(len(spread))], device=dev)
     rows = []
     for _ in range(b):
         parts = [torch.rand(400, 3, generator=gen, device=dev) * 10 - 5
                  + torch.tensor([0.0, 0.0, 10.0], device=dev)]
-        for centre, k in zip(cent, SPREAD):
+        for centre, k in zip(cent, spread):
             d = torch.randn(k, 3, generator=gen, device=dev)
             r = 0.9 * radius * torch.rand(k, 1, generator=gen, device=dev) ** (1 / 3)
             parts.append(centre + d / d.norm(dim=1, keepdim=True) * r)
@@ -547,6 +557,9 @@ def time_at_shape(key, launches, cache, xyz, feat, weights, radii, smi):
     extra = {}
     if k == "fps":
         extra = {"plan": list(ops.fps_plan(b, n)), "ns_per_pick": ms * 1e6 / max(s - 1, 1)}
+    elif k != "sa_select":
+        extra = {"cpb": ops.sa_launch_plan(w, fs.shape[-1], b, s, k != "sa_v3", k == "sa_raw",
+                                           k == "sa_fast")["cpb"]}
     log(f"{k} B={b} N={n} S={s}: {launches} launches; kernel {ms:.4f} ms, plain {plain_ms:.3f}"
         f" ms, bound {bnd:.4f} ms ({by}), max |err| {err:.3e}"
         + "".join(f", {key} {val}" for key, val in extra.items()) + f" [{smi}]")
@@ -611,10 +624,9 @@ def main() -> int:
         resources.update(kernel_resources((ops.BUILD_DIR / f"{name}.log").read_text()))
     for kname, res in resources.items():
         log(f"  {kname}: {res}")
-    # the inference tensor-core MLP (exact and fast), every ball-query and
-    # every FPS instantiation: no spill
-    for kname in ("sa_kernel_mma<raw=0, point0=0, fast=0>",
-                  "sa_kernel_mma<raw=0, point0=0, fast=1>",
+    # every tensor-core MLP, ball-query and FPS instantiation: no spill
+    for kname in (*(f"sa_kernel_mma<raw={r}, point0={p0}, fast={f}>"
+                    for r, p0, f in ((0, 0, 0), (0, 0, 1), (1, 0, 0), (0, 1, 0))),
                   *(f"sa_select_kernel<{cpw}>" for cpw in (1, 2, 4)),
                   *(f"fps_kernel<{t}, {p_}, cluster={int(c)}>" for t in ("f32", "bf16")
                     for c in (False, True) for p_ in ((8,) if c else ops.FPS_POINTS_PER_THREAD))):
@@ -634,7 +646,9 @@ def main() -> int:
     model = MotionPolicyNetwork(compute_dtype=bf16, device="cpu", generator=gen).to(dev).eval()
     sa_w = {dt: fused.sa_weights(model, dt) for dt in (f32, bf16)}
     stage_radii = [size["radius"] for size in fused.stage_sizes(model)]
-    for stage, c_in in ((0, 1), (1, 64)):
+    # the MLP's plan at each main-path batch: kernel, shared memory, blocks
+    # per SM and centroids per block (cpb)
+    for stage, (c_in, s_) in enumerate(((1, 512), (64, 128))):
         for dt in (f32, bf16):
             for variant, in_cloud, raw, fast in (("sa", True, False, False),
                                                  ("sa_raw", True, True, False),
@@ -642,8 +656,11 @@ def main() -> int:
                                                  ("sa_fast", True, False, True)):
                 if fast and stage:
                     continue
-                plan = ops.sa_launch_plan(sa_w[dt][stage], c_in, in_cloud, raw, fast)
-                log(f"  launch plan SA{stage} {str(dt)[6:]} {variant}: {plan}")
+                plans = {b_: ops.sa_launch_plan(sa_w[dt][stage], c_in, b_, s_, in_cloud, raw,
+                                                fast) for b_ in SA_MAIN_BATCHES}
+                log(f"  launch plan SA{stage} {str(dt)[6:]} {variant}, by B: {plans}")
+    if ops.sa_launch_plan(sa_w[bf16][0], 1, B, 512, fast=True)["cpb"] <= 8:
+        raise AssertionError("the SA0 plan keeps 8 centroids a block at B=256")
     for b_ in (1, 3, 10, 64, B):
         for n_, s_ in ((6272, 512), (512, 128)):
             log(f"  launch plan sa_select B={b_} N={n_} S={s_}: {ops.sa_select_plan(b_, n_, s_)}")
@@ -697,14 +714,14 @@ def main() -> int:
 
     phase("ball-query kernel vs plain (SA0, SA1; B=256 and B=1; the count spread)")
     sgen = torch.Generator(dev).manual_seed(SEED + 6)
-    spread = {stage: spread_cloud(sgen, stage_radii[stage], c_in, 4, dev)
-              for stage, c_in in ((0, 1), (1, 64))}
+    spread = {stage: spread_cloud(sgen, stage_radii[stage], c_in, 4, dev, counts)
+              for stage, c_in, counts in ((0, 1, SPREAD_SA0), (1, 64, SPREAD))}
     for label, xs, cs, radius in (
             ("SA0", xyz, cent["SA0"], stage_radii[0]), ("SA1", cent["SA0"], cent["SA1"],
                                                         stage_radii[1]),
             ("SA0 B=1", xyz[:1], cent["SA0"][:1], stage_radii[0]),
             ("SA1 B=1", cent["SA0"][:1], cent["SA1"][:1], stage_radii[1]),
-            *((f"SA{st} counts {SPREAD}", spread[st][0], spread[st][2], stage_radii[st])
+            *((f"SA{st} count spread", spread[st][0], spread[st][2], stage_radii[st])
               for st in (0, 1))):
         idx, count = ops.sa_select(xs, cs, radius)
         torch.cuda.synchronize()
@@ -798,14 +815,49 @@ def main() -> int:
         log(f"{label}: impl v5 (centroids_in_cloud) equals v8 bit for bit")
         check_sa(f"sa_v3 {label}", args, stage, bf16, in_cloud=False)
 
-    phase("SA kernel, neighbour counts across the 16-row tiles (SA0, SA1 widths)")
+    phase("SA kernel, neighbour counts across the 16-row tiles (SA0, SA1 widths); "
+          "bit-equal across centroids per block")
     whole = lambda xs, cs: ops.chunk_window(xs, cs, -(-xs.shape[1] // 128))
-    for label, stage in (("SA0", 0), ("SA1", 1)):
+    variants = (("sa", {}), ("sa_raw", dict(raw=True)), ("sa_v3", dict(in_cloud=False)),
+                ("sa_fast", dict(chunks_fn=whole)))
+    for label, stage, counts in (("SA0", 0, SPREAD_SA0), ("SA1", 1, SPREAD)):
         for dtype in (f32, bf16):
-            for kernel, kw in (("sa", {}), ("sa_raw", dict(raw=True)),
-                               ("sa_v3", dict(in_cloud=False)), ("sa_fast", dict(chunks_fn=whole))):
-                check_sa(f"{kernel} {label} counts {SPREAD}", spread[stage], stage, dtype,
-                         timed=False, **kw)
+            for kernel, kw in variants:
+                check_sa(f"{kernel} {label} count spread ({len(counts)} centroids)",
+                         spread[stage], stage, dtype, timed=False, **kw)
+
+    def cpb_equal(label, args, stage, variants, cpbs, timed):
+        """The bf16 MLP kernel under each of cpbs (centroids per block):
+        idx, raw block and features bit-equal to cpb 8's; on the exact path
+        the MLP alone, reading one selection; timed where asked."""
+        w, radius = sa_w[bf16][stage], stage_radii[stage]
+        for kernel, kw in variants:
+            chunks = kw["chunks_fn"](args[0], args[2]) if "chunks_fn" in kw else None
+            sel = None if chunks is not None else ops.sa_select(args[0], args[2], radius)
+            in_cloud, raw = kw.get("in_cloud", True), kw.get("raw", False)
+            outs, times = {}, {}
+            for cpb in cpbs:
+                run = lambda cpb=cpb: ops.sa_kernel(*args, w, radius, chunks, in_cloud, raw,
+                                                    selection=sel, centroids_per_block=cpb)
+                outs[cpb] = run()
+                if timed:
+                    times[cpb] = cuda_ms(run, 3)
+            torch.cuda.synchronize()
+            for cpb, out in outs.items():
+                if not all(map(torch.equal, out, outs[8])):
+                    raise AssertionError(f"{kernel} {label}: cpb {cpb} differs from cpb 8")
+            auto = ops.sa_launch_plan(w, args[1].shape[-1], args[0].shape[0], args[2].shape[1],
+                                      in_cloud, raw, chunks is not None)["cpb"]
+            log(f"{kernel} {label}: idx{', raw' if raw else ''} and features bit-equal under cpb "
+                f"{list(cpbs)} (the plan's: {auto})"
+                + (": MLP ms " + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+                   + f" [{smi}]" if timed else ""))
+
+    # SA1's weights and tiles leave no room for 32 centroids a block
+    for label, stage, cpbs in (("SA0", 0, (8, 16, 32)), ("SA1", 1, (8, 16))):
+        cpb_equal(f"{label} count spread", spread[stage], stage, variants, cpbs, False)
+    cpb_equal(f"SA0 B={B} assembled cloud", sa0_args, 0,
+              (("sa", {}), ("sa_fast", dict(chunks_fn=fast_chunks))), (8, 16, 32), True)
 
     # ---- 2. full-width forward: kernel path against the plain paths -------
     phase(f"full-width forward, B={B}")

@@ -57,46 +57,68 @@
 //
 // The MLP kernels are templates over the raw block (kRaw), the off-cloud
 // branch (kPoint0) and the grouping (kFast): on the exact path (kFast = 0)
-// a warp reads its centroid's selection from idx and count; on the fast
-// path it scans the window itself (select_warp, one warp per centroid,
-// the same ballot compaction over the cloud in global memory). The raw
-// block is a v8 output and so comes only with in_cloud = 1 on the exact
-// path. mpn_sa picks one of eight instantiations.
+// a warp reads its centroids' selections from idx and count; on the fast
+// path it scans their windows itself (the same ballot compaction over the
+// cloud in global memory). The raw block is a v8 output and so comes only
+// with in_cloud = 1 on the exact path. mpn_sa picks one of eight
+// instantiations.
 //
 // sa_kernel_mma (bf16): the MLP runs on the tensor cores, mma.sync
 // m16n8k16 with bf16 operands and f32 accumulation, as the TPU kernel runs
 // it on the MXU (pallas_ops.py:947-960). What bounds it on the H100: the
 // MLP over the valid rows (about 61 rows per centroid at SA1, 2.3e11 FLOP
 // at B=256; about 3.6 at SA0), latency-bound with one block of 8 warps per
-// SM at SA1, and at SA0 the gather and the weights' copy per block of 8
-// centroids. Design:
-//  * One block of 8 warps per 8 centroids of one batch row; the block
-//    copies the three layers' weights (bf16, W^T [n, k], zero-padded to
-//    multiples of 16, made once per model by prepare_sa_weights) into shared
-//    memory with cp.async while warp w reads (or scans for) the selection
-//    of centroid w, and waits once.
-//  * Rows go in tiles of 16 (the mma's m), up to max(count, 1) per
-//    centroid: 1 tile at SA0 and about 4 at SA1, so no packing of rows
-//    across centroids is needed. The block's tiles are dealt to its warps in
-//    turn rather than each warp keeping its own centroid, so no warp waits
-//    on the centroid with the most rows; each warp has its own tile buffers,
-//    so there is no block barrier inside the MLP (the CUDA-core kernel pays
-//    four per 32-row block).
+// SM at SA1; at SA0 each block's fixed cost (the weights' copy, the
+// selection's dependent loads) over few rows. Design:
+//  * One block of 8 warps per cpb centroids of one batch row (cpb 8, 16 or
+//    32, the launch plan's; grid (ceil(s / cpb), b)). The block copies the
+//    three layers' weights (bf16, W^T [n, k], zero-padded to multiples of
+//    16, made once per model by prepare_sa_weights) into shared memory with
+//    cp.async while warp w reads (or scans for) the selections of its
+//    cpb / 8 centroids, and waits once. On the exact path a warp issues all
+//    its centroids' count loads, then all their idx loads; on the fast path
+//    it scans their windows together rank by rank, every point load of a
+//    rank issued before the first ballot (W dependent trips a warp, not 16
+//    a centroid at W = 4), each centroid's ballots in its own scan order.
+//  * Rows are packed across the block's centroids: centroid g owns
+//    max(min(count, 128), 1) rows from the exclusive prefix of those counts
+//    (one warp scan, lane g holding g's offset), and 16-row tiles (the
+//    mma's m) run over the concatenation, dealt to the warps in turn. SA0
+//    keeps about 4-13 rows a centroid, so a tile holds several centroids
+//    where each had a tile of its own before, and a block of 32 centroids
+//    is one to three tiles a warp. A tile's rows find their centroids at
+//    once: the first is popc(ballot(off <= t0)) - 1, and a row's is the
+//    first plus the centroids whose rows start after t0 and by it (an
+//    OR-reduced 16-bit mask of starts); the warp keeps them in a map with
+//    each row's cloud point (-1: a zero raw row), -1 past the block's rows.
+//    Each warp has its own tile buffers, so there is no block barrier inside
+//    the MLP (the CUDA-core kernel pays four per 32-row block).
 //  * A operands (the gathered raw rows, then h1, then h2 over the raw rows'
 //    buffer), weights and biases sit in shared memory, rows padded by 16
 //    bytes so every ldmatrix row lands on its own banks. The gather keeps
 //    8 loads in flight per lane. Each layer runs in passes of 32 output
 //    columns (16 accumulators a thread); its epilogue works on the C
-//    fragments in registers: bias, the layer-1 recentring term, ReLU, bf16
-//    rounding into the next layer's A tile; after layer 3 the max over the
-//    rows below max(count, 1) (two rows a thread, then shuffles over lanes
-//    4, 8 and 16) goes into the centroid's max-pool by an integer atomicMax
-//    (ReLU outputs are non-negative, whose bits order as ints).
-//  * Shared memory: 210 KB at SA1 (one block per SM), 66 KB at SA0, where
-//    __launch_bounds__(256, 3) (80 registers) keeps 3 blocks per SM. A
-//    stage whose weights and tiles do not fit takes the CUDA-core kernel.
-// Left for later: wgmma, whose 64-row tiles need rows packed across
-// centroids (and would read each weight tile once per 64 rows, not per 16).
+//    fragments in registers: bias, the layer-1 recentring term of the row's
+//    own centroid (W1[:3]^T c from W1's rows 0-2 in shared memory), ReLU,
+//    bf16 rounding into the next layer's A tile. kPoint0 overwrites the one
+//    row of each centroid with count 0 by point 0's layer-1 row. After layer
+//    3 the max-pool is segmented by centroid, by a layer-3 instantiation
+//    chosen per tile: a tile whose 16 rows are one centroid's takes the max
+//    over them by shuffles over lanes 4, 8 and 16 and one atomicMax a
+//    column; a mixed tile takes a segmented suffix max by shuffles within
+//    each 8-row half, and each centroid's first row in a half takes one
+//    shared atomicMax a column (one atomic a row instead, serialised 8 ways
+//    on a shared address, cost SA1 10-27% on an H100). ReLU outputs are
+//    non-negative, whose bits order as ints; rows past the block's never
+//    enter a max. An mma row depends on its own A row alone, in the same k
+//    order in any tile, so the features are bit-equal whatever cpb is.
+//  * Shared memory at SA0: 66 KB at cpb 8, 72 KB at 16, 84 KB at 32; at SA1
+//    209 KB at 8, 221 KB at 16 (32 does not fit): __launch_bounds__(256, 2)
+//    keeps two blocks per SM at SA0, one at SA1. A stage whose weights and
+//    tiles do not fit at cpb 8 takes the CUDA-core kernel.
+// Left for later: the window choice inside the kernel, a persistent loop
+// that stages the weights once per SM, and wgmma, whose 64-row tiles the
+// packed rows now make possible.
 //
 // sa_kernel (f32; and bf16 beyond the tensor-core kernel's shared memory):
 // the MLP on the CUDA cores (67 TFLOP/s f32 peak), per centroid on blocks
@@ -122,8 +144,10 @@ namespace {
 
 constexpr int kNs = 128;      // neighbours kept per centroid
 constexpr int kChunk = 128;   // points per chunk (the fast window's unit)
-constexpr int kTs = 8;        // centroids per block: one warp each for selection
-constexpr int kThreads = kTs * 32;
+constexpr int kTs = 8;        // centroids per block of the CUDA-core kernel: one a warp
+constexpr int kWarps = 8;     // warps per MLP block (both kernels)
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxCpw = 4;    // tensor-core kernel: centroids per warp, at most (cpb 32)
 constexpr int kRows = 32;     // CUDA-core MLP row block
 constexpr int kRpt = 8;       // rows per thread item
 constexpr int kGroups = kRows / kRpt;
@@ -168,6 +192,7 @@ struct SaArgs {
   int n, s, c, kp, c1, c2, c3, window, bf16;
   int k1p, n1p, n2p, n3p;  // 3 + c, c1, c2, c3 rounded up to 16
   float r2;
+  int cpb;                 // centroids per block: 8 (CUDA-core), 8, 16 or 32 (tensor-core)
 };
 
 __device__ __forceinline__ float round_bf16(float x) {
@@ -259,55 +284,132 @@ __global__ void __launch_bounds__(kSelThreads, 2) sa_select_kernel(SelArgs a) {
   }
 }
 
-// Exact path: the selection of centroid (b, s) that sa_select_kernel wrote,
-// its kept indices into my_sel. Returns the kept count.
-__device__ __forceinline__ int load_selection(const SaArgs& a, int b, int s, int lane,
-                                              int* my_sel) {
-  const size_t row = (size_t)b * a.s + s;
-  const int kept = a.count[row];
-  for (int k = lane; k < kept; k += 32) my_sel[k] = a.idx[row * kNs + k];
+// Exact path: the selections that sa_select_kernel wrote for the warp's
+// centroids s .. s + cpw - 1, every count loaded, then every kept index,
+// before the first store, so the loads' latencies overlap. Centroid g's kept indices
+// go to sel + g * kNs, its kept count to cnt[g] (-1 past S).
+__device__ __forceinline__ void load_selections(const SaArgs& a, int b, int s, int cpw, int lane,
+                                                int* sel, int* cnt) {
+  const size_t row0 = (size_t)b * a.s + s;
+  const int mine = lane < cpw && s + lane < a.s ? a.count[row0 + lane] : -1;
+  int kept[kMaxCpw];
+  int v[kMaxCpw][kNs / 32];
+#pragma unroll
+  for (int g = 0; g < kMaxCpw; ++g) {
+    kept[g] = __shfl_sync(0xffffffffu, mine, g);
+#pragma unroll
+    for (int j = 0; j < kNs / 32; ++j) {
+      v[g][j] = 0;
+      if (g < cpw && lane + 32 * j < kept[g]) v[g][j] = a.idx[(row0 + g) * kNs + lane + 32 * j];
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < kMaxCpw; ++g) {
+    if (g >= cpw) break;
+#pragma unroll
+    for (int j = 0; j < kNs / 32; ++j) {
+      if (lane + 32 * j < kept[g]) sel[g * kNs + lane + 32 * j] = v[g][j];
+    }
+    if (lane == 0) cnt[g] = kept[g];
+  }
   __syncwarp();
-  return kept;
 }
 
-// Fast path: warp-wide scan of centroid (b, s)'s window. The first kNs hits
-// in scan order go to my_sel, idx gets them with fill-with-first. Returns
-// the hit count.
-__device__ __forceinline__ int select_warp(const SaArgs& a, const float* xyz, int b, int s,
-                                           bool bf16, int lane, int* my_sel) {
-  int count = 0;
-  const float* c = a.cent + ((size_t)b * a.s + s) * 3;
-  const float cx = c[0], cy = c[1], cz = c[2];
-  const int* list = a.chunks + ((size_t)b * a.s + s) * a.window;
-  // count is warp-uniform (it only grows by ballot popcounts), so are the exits
-  for (int li = 0; li < a.window && count < kNs; ++li) {
-    const int chunk = list[li];
-    for (int sub = 0; sub < kChunk / 32 && count < kNs; ++sub) {
-      const int p = chunk * kChunk + sub * 32 + lane;
-      bool in = false;
-      if (p < a.n) {
-        float x = xyz[3 * p], y = xyz[3 * p + 1], z = xyz[3 * p + 2];
-        if (bf16) {
-          x = round_bf16(x);
-          y = round_bf16(y);
-          z = round_bf16(z);
+// Fast path: the window scans of the warp's centroids s .. s + cpw - 1
+// together, rank by rank. For window rank li, every point load of that
+// rank (4 a lane for each centroid still short of kNs hits) is issued
+// before the first ballot, so the warp waits once a rank, not once a 32
+// points. Each centroid's ballots run in its own scan order (rank, then
+// lane) and stop after the 32 points in which it reached kNs, so its hits,
+// its idx (fill with the first) and its count are those of a scan of that
+// centroid alone. bf16: test bf16-rounded point coordinates. Hits go to
+// sel + g * kNs, counts to cnt[g] (-1 past S).
+__device__ __forceinline__ void scan_windows(const SaArgs& a, const float* xyz, int b, int s,
+                                             int cpw, bool bf16, int lane, int* sel, int* cnt) {
+  constexpr int kSub = kChunk / 32;
+  const size_t row0 = (size_t)b * a.s + s;
+  const float nan = __int_as_float(0x7fc00000);
+  float cx[kMaxCpw], cy[kMaxCpw], cz[kMaxCpw];
+  int count[kMaxCpw];  // warp-uniform: it only grows by ballot popcounts
+#pragma unroll
+  for (int g = 0; g < kMaxCpw; ++g) {
+    cx[g] = cy[g] = cz[g] = 0.f;
+    count[g] = kNs;  // no centroid: nothing to scan
+    if (g < cpw && s + g < a.s) {
+      const float* c = a.cent + (row0 + g) * 3;
+      cx[g] = c[0];
+      cy[g] = c[1];
+      cz[g] = c[2];
+      count[g] = 0;
+    }
+  }
+  const unsigned below = (1u << lane) - 1u;
+  for (int l0 = 0; l0 < a.window; l0 += 32) {
+    int entry[kMaxCpw];  // lane l: window rank l0 + l of centroid g
+#pragma unroll
+    for (int g = 0; g < kMaxCpw; ++g) {
+      entry[g] = 0;
+      if (count[g] < kNs && l0 + lane < a.window) {
+        entry[g] = a.chunks[(row0 + g) * a.window + l0 + lane];
+      }
+    }
+    for (int li = l0; li < min(l0 + 32, a.window); ++li) {
+      bool live = false;
+#pragma unroll
+      for (int g = 0; g < kMaxCpw; ++g) live = live || count[g] < kNs;
+      if (!live) break;
+      float x[kMaxCpw][kSub], y[kMaxCpw][kSub], z[kMaxCpw][kSub];
+#pragma unroll
+      for (int g = 0; g < kMaxCpw; ++g) {
+        const int chunk = __shfl_sync(0xffffffffu, entry[g], li - l0);
+#pragma unroll
+        for (int sub = 0; sub < kSub; ++sub) {
+          const int p = chunk * kChunk + sub * 32 + lane;
+          x[g][sub] = y[g][sub] = z[g][sub] = nan;  // no test passes
+          if (count[g] < kNs && p < a.n) {
+            x[g][sub] = xyz[3 * p];
+            y[g][sub] = xyz[3 * p + 1];
+            z[g][sub] = xyz[3 * p + 2];
+            if (bf16) {
+              x[g][sub] = round_bf16(x[g][sub]);
+              y[g][sub] = round_bf16(y[g][sub]);
+              z[g][sub] = round_bf16(z[g][sub]);
+            }
+          }
         }
-        in = dist2(x, y, z, cx, cy, cz) < a.r2;
       }
-      const unsigned mask = __ballot_sync(0xffffffffu, in);
-      if (in) {
-        const int slot = count + __popc(mask & ((1u << lane) - 1u));
-        if (slot < kNs) my_sel[slot] = p;
+#pragma unroll
+      for (int g = 0; g < kMaxCpw; ++g) {
+        const int chunk = __shfl_sync(0xffffffffu, entry[g], li - l0);
+#pragma unroll
+        for (int sub = 0; sub < kSub; ++sub) {
+          if (count[g] < kNs) {
+            const int p = chunk * kChunk + sub * 32 + lane;
+            const bool in = dist2(x[g][sub], y[g][sub], z[g][sub], cx[g], cy[g], cz[g]) < a.r2;
+            const unsigned mask = __ballot_sync(0xffffffffu, in);
+            if (in) {
+              const int slot = count[g] + __popc(mask & below);
+              if (slot < kNs) sel[g * kNs + slot] = p;
+            }
+            count[g] += __popc(mask);
+          }
+        }
       }
-      count += __popc(mask);
     }
   }
   __syncwarp();
-  const int kept = min(count, kNs);
-  const int first = count > 0 ? my_sel[0] : 0;
-  int* out_idx = a.idx + ((size_t)b * a.s + s) * kNs;
-  for (int k = lane; k < kNs; k += 32) out_idx[k] = k < kept ? my_sel[k] : first;
-  return count;
+#pragma unroll
+  for (int g = 0; g < kMaxCpw; ++g) {
+    if (g >= cpw) break;
+    if (s + g < a.s) {
+      const int kept = min(count[g], kNs);
+      const int first = count[g] > 0 ? sel[g * kNs] : 0;
+      int* out_idx = a.idx + (row0 + g) * kNs;
+      for (int k = lane; k < kNs; k += 32) out_idx[k] = k < kept ? sel[g * kNs + k] : first;
+    }
+    if (lane == 0) cnt[g] = s + g < a.s ? count[g] : -1;
+  }
+  __syncwarp();
 }
 
 // ---------------------------------------------------------------------------
@@ -384,14 +486,10 @@ __global__ void __launch_bounds__(kThreads) sa_kernel(SaArgs a) {
   const bool bf16 = a.bf16 != 0;
 
   // ---- selection of centroid s0 + w, by warp w -------------------------------
-  {
-    const int s = s0 + warp;
-    int count = 0;
-    if (s < a.s) {
-      count = kFast ? select_warp(a, xyz, b, s, bf16, lane, sel + warp * kNs)
-                    : load_selection(a, b, s, lane, sel + warp * kNs);
-    }
-    if (lane == 0) cnt[warp] = count;
+  if constexpr (kFast) {
+    scan_windows(a, xyz, b, s0 + warp, 1, bf16, lane, sel + warp * kNs, cnt + warp);
+  } else {
+    load_selections(a, b, s0 + warp, 1, lane, sel + warp * kNs, cnt + warp);
   }
   __syncthreads();
 
@@ -513,20 +611,48 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// What a lane's two C-fragment rows of a tile (lo = lane / 4 and hi = lo +
+// 8) take in the epilogues: their centroids within the block (-1: a row
+// past the block's packed rows), the centroid of all 16 rows (-1: more than
+// one, or rows past the block's), the coordinates of the rows' centroids,
+// and the segments of the max-pool: join_lo[i] 1 where row lo + 2^i is in
+// lo's 8-row half and lo's centroid, else 0 (join_hi the same for hi), as
+// floats, so the suffix max masks by a product and takes no predicate;
+// head_lo (head_hi) where lo (hi) is its centroid's first row in its half.
+struct TileRows {
+  int g_lo, g_hi, g_all;
+  bool head_lo, head_hi;
+  float join_lo[3], join_hi[3];
+  float lo[3], hi[3];
+};
+
+// The layer-1 recentring term W1[:3]^T c of output column j, from w1c, the
+// f32 rows 0-2 of W1 in shared memory ([3][ldc], zero past c1).
+__device__ __forceinline__ float recentre(const float* w1c, int ldc, int j, float cx, float cy,
+                                          float cz) {
+  return w1c[j] * cx + w1c[ldc + j] * cy + w1c[2 * ldc + j] * cz;
+}
+
 // One dense layer of the tensor-core MLP on one warp's 16-row tile:
 // A [16, k] bf16 (row stride lda), W^T [n, k] bf16 (row stride k + kPad)
 // and the bias [n] f32 (zero past nreal, the layer's real output width), all
 // in shared memory, k and n multiples of 16. Passes of kNc output columns;
 // lane holds the m16n8 C fragment of each 8-column tile: rows lane/4 and
 // lane/4 + 8, columns 2*(lane%4) + {0, 1}.
-// kMode 0: layer 1, (acc + b) - bc, ReLU, bf16 into out (row stride ldo);
-// 1: hidden, acc + b, ReLU, bf16 into out; 2: last, acc + b, ReLU, max over
-// the rows below row_limit into pmax (bits of non-negative floats).
+// kMode 0: layer 1, (acc + b) - W1[:3]^T c of the row's centroid (w1c, ldc),
+// ReLU, bf16 into out (row stride ldo); 1: hidden, acc + b, ReLU, bf16 into
+// out; 2 and 3: last, acc + b, ReLU, max of each row into its centroid's
+// row of pmax ([cpb][nreal], bits of non-negative floats). 2: all 16 rows
+// are centroid g_all's: a max over them by shuffles and one atomicMax a
+// column. 3: rows of several centroids: a segmented suffix max over each
+// 8-row half (shuffles 1, 2 and 4 rows down, within the row's centroid)
+// and one atomicMax a column for each centroid's first row in each half;
+// rows past the block's never enter a max.
 template <int kMode>
 __device__ __forceinline__ void mma_layer(const bf16_t* A, int lda, const bf16_t* W, int k,
                                           int n, const float* bias, int nreal,
-                                          const float* bc, bf16_t* out, int ldo, int* pmax,
-                                          int row_limit, int lane) {
+                                          const float* w1c, int ldc, const TileRows& tr,
+                                          bf16_t* out, int ldo, int* pmax, int lane) {
   const int row = lane >> 2;
   const int q = lane & 3;
   const int ldw = k + kPad;
@@ -561,11 +687,10 @@ __device__ __forceinline__ void mma_layer(const bf16_t* A, int lda, const bf16_t
         float v00 = acc[t][0] + bias0, v01 = acc[t][1] + bias1;  // row
         float v10 = acc[t][2] + bias0, v11 = acc[t][3] + bias1;  // row + 8
         if constexpr (kMode == 0) {
-          const float bc0 = bc[col], bc1 = bc[col + 1];
-          v00 = v00 - bc0;
-          v01 = v01 - bc1;
-          v10 = v10 - bc0;
-          v11 = v11 - bc1;
+          v00 = v00 - recentre(w1c, ldc, col, tr.lo[0], tr.lo[1], tr.lo[2]);
+          v01 = v01 - recentre(w1c, ldc, col + 1, tr.lo[0], tr.lo[1], tr.lo[2]);
+          v10 = v10 - recentre(w1c, ldc, col, tr.hi[0], tr.hi[1], tr.hi[2]);
+          v11 = v11 - recentre(w1c, ldc, col + 1, tr.hi[0], tr.hi[1], tr.hi[2]);
         }
         v00 = fmaxf(v00, 0.f);
         v01 = fmaxf(v01, 0.f);
@@ -574,22 +699,38 @@ __device__ __forceinline__ void mma_layer(const bf16_t* A, int lda, const bf16_t
         if constexpr (kMode < 2) {
           *reinterpret_cast<uint32_t*>(out + row * ldo + col) = pack_bf16(v00, v01);
           *reinterpret_cast<uint32_t*>(out + (row + 8) * ldo + col) = pack_bf16(v10, v11);
-        } else {
-          // rows past the count are zero raw rows: 0, the ReLU max's identity
-          float m0 = row < row_limit ? v00 : 0.f;
-          float m1 = row < row_limit ? v01 : 0.f;
-          if (row + 8 < row_limit) {
-            m0 = fmaxf(m0, v10);
-            m1 = fmaxf(m1, v11);
-          }
+        } else if (kMode == 2) {  // all 16 rows are one centroid's
+          float m0 = fmaxf(v00, v10), m1 = fmaxf(v01, v11);
 #pragma unroll
           for (int o = 4; o < 32; o <<= 1) {
             m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
             m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
           }
+          int* pm = pmax + tr.g_all * nreal;
           if (row == 0) {
-            if (col < nreal) atomicMax(pmax + col, __float_as_int(m0));
-            if (col + 1 < nreal) atomicMax(pmax + col + 1, __float_as_int(m1));
+            if (col < nreal) atomicMax(pm + col, __float_as_int(m0));
+            if (col + 1 < nreal) atomicMax(pm + col + 1, __float_as_int(m1));
+          }
+        } else {  // rows of several centroids: segmented by centroid
+#pragma unroll
+          for (int i = 0; i < 3; ++i) {
+            // lanes 4 * 2^i apart: rows 2^i apart; every value is >= 0, so
+            // a row of another centroid, times 0, changes no max
+            const int o = 4 << i;
+            v00 = fmaxf(v00, tr.join_lo[i] * __shfl_down_sync(0xffffffffu, v00, o));
+            v01 = fmaxf(v01, tr.join_lo[i] * __shfl_down_sync(0xffffffffu, v01, o));
+            v10 = fmaxf(v10, tr.join_hi[i] * __shfl_down_sync(0xffffffffu, v10, o));
+            v11 = fmaxf(v11, tr.join_hi[i] * __shfl_down_sync(0xffffffffu, v11, o));
+          }
+          if (tr.head_lo) {
+            int* pm = pmax + tr.g_lo * nreal;
+            if (col < nreal) atomicMax(pm + col, __float_as_int(v00));
+            if (col + 1 < nreal) atomicMax(pm + col + 1, __float_as_int(v01));
+          }
+          if (tr.head_hi) {
+            int* pm = pmax + tr.g_hi * nreal;
+            if (col < nreal) atomicMax(pm + col, __float_as_int(v10));
+            if (col + 1 < nreal) atomicMax(pm + col + 1, __float_as_int(v11));
           }
         }
       }
@@ -597,28 +738,45 @@ __device__ __forceinline__ void mma_layer(const bf16_t* A, int lda, const bf16_t
   }
 }
 
+// Dynamic shared memory of sa_kernel_mma at these padded widths and cpb
+// centroids per block, in the order the kernel lays it out.
+size_t mma_smem_bytes(int k1p, int n1p, int n2p, int n3p, int c3, int cpb) {
+  const size_t bf16s = (size_t)n1p * (k1p + kPad) + (size_t)n2p * (n1p + kPad) +
+                       (size_t)n3p * (n2p + kPad) +
+                       (size_t)kWarps * kTile * (std::max(k1p, n2p) + n1p + 2 * kPad);
+  const size_t words = (size_t)(n1p + n2p + n3p) + 3 * n1p + 3 * cpb +
+                       (size_t)cpb * (c3 + kNs + 1) + kWarps * 2 * kTile;
+  return 2 * bf16s + 4 * words;
+}
+
 template <bool kRaw, bool kPoint0, bool kFast>
-__global__ void __launch_bounds__(kThreads, 3) sa_kernel_mma(SaArgs a) {
+__global__ void __launch_bounds__(kThreads, 2) sa_kernel_mma(SaArgs a) {
   extern __shared__ float4 smem4[];
+  const int cpb = a.cpb;
+  const int cpw = cpb / kWarps;              // centroids a warp selects for
   const int lda = max(a.k1p, a.n2p) + kPad;  // tile buffer A: raw rows, then h2
   const int ldb = a.n1p + kPad;              // tile buffer B: h1
   bf16_t* w1s = reinterpret_cast<bf16_t*>(smem4);   // [n1p][k1p + kPad]
   bf16_t* w2s = w1s + a.n1p * (a.k1p + kPad);       // [n2p][n1p + kPad]
   bf16_t* w3s = w2s + a.n2p * (a.n1p + kPad);       // [n3p][n2p + kPad]
-  bf16_t* tiles = w3s + a.n3p * (a.n2p + kPad);     // [kTs][kTile][lda + ldb]
-  float* bc = reinterpret_cast<float*>(tiles + kTs * kTile * (lda + ldb));  // [kTs][n1p]
-  float* bias = bc + kTs * a.n1p;  // b1, b2, b3 zero-padded: [n1p + n2p + n3p]
-  int* pmax = reinterpret_cast<int*>(bias + a.n1p + a.n2p + a.n3p);  // [kTs][c3]
-  int* sel = pmax + kTs * a.c3;                          // [kTs][kNs]
-  int* cnt = sel + kTs * kNs;                            // [kTs]; -1: no centroid
+  bf16_t* tiles = w3s + a.n3p * (a.n2p + kPad);     // [kWarps][kTile][lda + ldb]
+  float* bias = reinterpret_cast<float*>(tiles + kWarps * kTile * (lda + ldb));
+  // bias: b1, b2, b3 zero-padded [n1p + n2p + n3p]; w1c: W1 rows 0-2 [3][n1p]
+  float* w1c = bias + a.n1p + a.n2p + a.n3p;
+  float* cent = w1c + 3 * a.n1p;                         // [cpb][3]
+  int* pmax = reinterpret_cast<int*>(cent + 3 * cpb);    // [cpb][c3]
+  int* sel = pmax + cpb * a.c3;                          // [cpb][kNs]
+  int* cnt = sel + cpb * kNs;                            // [cpb]; -1: no centroid
+  int* tmap = cnt + cpb;                                 // [kWarps][2][kTile]
 
   const int b = blockIdx.y;
-  const int s0 = blockIdx.x * kTs;
+  const int s0 = blockIdx.x * cpb;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const float* xyz = a.xyz + (size_t)b * a.n * 3;
   const float* feat = a.feat + (size_t)b * a.n * a.c;
+  const int kin = 3 + a.c;
 
   stage_async(w1s, a.w1t, a.n1p, a.k1p);
   stage_async(w2s, a.w2t, a.n2p, a.n1p);
@@ -628,60 +786,94 @@ __global__ void __launch_bounds__(kThreads, 3) sa_kernel_mma(SaArgs a) {
     bias[j] = j2 < 0 ? (j < a.c1 ? a.b1[j] : 0.f)
               : j3 < 0 ? (j2 < a.c2 ? a.b2[j2] : 0.f) : (j3 < a.c3 ? a.b3[j3] : 0.f);
   }
+  for (int i = tid; i < 3 * a.n1p; i += kThreads) {
+    const int ch = i / a.n1p, j = i - ch * a.n1p;
+    w1c[i] = j < a.c1 ? a.w1f[ch * a.c1 + j] : 0.f;
+  }
+  for (int i = tid; i < 3 * cpb; i += kThreads) {
+    cent[i] = s0 + i / 3 < a.s ? a.cent[((size_t)b * a.s + s0) * 3 + i] : 0.f;
+  }
+  for (int i = tid; i < cpb * a.c3; i += kThreads) pmax[i] = 0;  // +0.f
 
-  // ---- warp w: selection, raw block, recentring bias of centroid s0 + w ----
+  // ---- warp w: selection and raw block of centroids s0 + w * cpw + g ------
   {
-    const int s = s0 + warp;
-    int count = -1;
-    if (s < a.s) {
-      int* my_sel = sel + warp * kNs;
-      count = kFast ? select_warp(a, xyz, b, s, true, lane, my_sel)
-                    : load_selection(a, b, s, lane, my_sel);
-      if constexpr (kRaw) {  // all 128 slots, as the CUDA-core kernel writes them
-        const int p = 3 + a.c;
-        const int kept = min(count, kNs);
-        float* raw_out = a.raw + ((size_t)b * a.s + s) * kNs * p;
-        for (int i = lane; i < kNs * p; i += 32) {
-          const int r = i / p;
-          const int k = i - r * p;
+    const int g0 = warp * cpw;
+    if constexpr (kFast) {
+      scan_windows(a, xyz, b, s0 + g0, cpw, true, lane, sel + g0 * kNs, cnt + g0);
+    } else {
+      load_selections(a, b, s0 + g0, cpw, lane, sel + g0 * kNs, cnt + g0);
+    }
+    if constexpr (kRaw) {  // all 128 slots, as the CUDA-core kernel writes them
+      for (int g = g0; g < g0 + cpw && s0 + g < a.s; ++g) {
+        const int kept = min(cnt[g], kNs);
+        float* raw_out = a.raw + ((size_t)b * a.s + s0 + g) * kNs * kin;
+        for (int i = lane; i < kNs * kin; i += 32) {
+          const int r = i / kin;
+          const int k = i - r * kin;
           float v = 0.f;
           if (r < kept) {
-            const int q = my_sel[r];
+            const int q = sel[g * kNs + r];
             v = k < 3 ? xyz[3 * q + k] : feat[(size_t)q * a.c + (k - 3)];
           }
           raw_out[i] = v;
         }
       }
-      const float* c = a.cent + ((size_t)b * a.s + s) * 3;
-      const float cx = c[0], cy = c[1], cz = c[2];
-      for (int j = lane; j < a.n1p; j += 32) {
-        bc[warp * a.n1p + j] =
-            j < a.c1 ? a.w1f[j] * cx + a.w1f[a.c1 + j] * cy + a.w1f[2 * a.c1 + j] * cz : 0.f;
-      }
-      for (int j = lane; j < a.c3; j += 32) pmax[warp * a.c3 + j] = 0;  // +0.f
     }
-    if (lane == 0) cnt[warp] = count;
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
 
-  // ---- the block's 16-row tiles, dealt to the warps in turn ----------------
+  // ---- the block's rows, packed: centroid g owns max(min(count, kNs), 1)
+  // rows from off (held by lane g), in 16-row tiles dealt to the warps in turn
+  const int nrows = lane < cpb && cnt[lane] >= 0 ? max(min(cnt[lane], kNs), 1) : 0;
+  int incl = nrows;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += t;
+  }
+  const int off = incl - nrows;
+  const int total = __shfl_sync(0xffffffffu, incl, 31);
+  int* map_g = tmap + warp * 2 * kTile;  // tile row -> centroid, -1 past the rows
+  int* map_p = map_g + kTile;            // tile row -> cloud point, -1: a zero raw row
   bf16_t* buf_a = tiles + warp * kTile * (lda + ldb);
   bf16_t* buf_b = buf_a + kTile * lda;
-  const int kin = 3 + a.c;
-  for (int i = warp;; i += kTs) {
-    int g = 0, base = 0, nrows = 0;
-    for (; g < kTs; ++g) {
-      nrows = cnt[g] < 0 ? 0 : max(min(cnt[g], kNs), 1);
-      const int ntiles = (nrows + kTile - 1) / kTile;
-      if (i < base + ntiles) break;
-      base += ntiles;
+  for (int t0 = warp * kTile; t0 < total; t0 += kWarps * kTile) {
+    {  // lane j < 16: row t0 + j, whose centroid is the tile's first (the
+       // last whose rows start at or before t0) plus those starting after t0
+      const int first = __popc(__ballot_sync(0xffffffffu, off <= t0)) - 1;
+      unsigned starts = nrows > 0 && off > t0 && off < t0 + kTile ? 1u << (off - t0) : 0u;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) starts |= __shfl_xor_sync(0xffffffffu, starts, o);
+      const int row = t0 + lane;
+      const int g = min(first + __popc(starts & ((2u << (lane & 15)) - 1u)), 31);
+      const int r = row - __shfl_sync(0xffffffffu, off, g);
+      if (lane < kTile) {
+        const bool live = row < total;
+        map_g[lane] = live ? g : -1;
+        map_p[lane] = live && r < min(cnt[g], kNs) ? sel[g * kNs + r] : -1;
+      }
     }
-    if (g == kTs) break;
-    const int r0 = (i - base) * kTile;
-    const int kept = min(cnt[g], kNs);
-    const int* gsel = sel + g * kNs;
-    // raw rows r0 .. r0 + 15 in bf16, zero past the count and past 3 + c;
+    __syncwarp();
+    TileRows tr;
+    const int lo = lane >> 2, hi = lo + 8;
+    tr.g_lo = map_g[lo];
+    tr.g_hi = map_g[hi];
+    tr.g_all = map_g[0] == map_g[kTile - 1] ? map_g[0] : -1;
+    tr.head_lo = tr.g_lo >= 0 && (lo == 0 || map_g[lo - 1] != tr.g_lo);
+    tr.head_hi = tr.g_hi >= 0 && (hi == 8 || map_g[hi - 1] != tr.g_hi);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const int d = 1 << i;
+      tr.join_lo[i] = lo + d < 8 && tr.g_lo >= 0 && map_g[lo + d] == tr.g_lo ? 1.f : 0.f;
+      tr.join_hi[i] = hi + d < kTile && tr.g_hi >= 0 && map_g[hi + d] == tr.g_hi ? 1.f : 0.f;
+    }
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      tr.lo[d] = tr.g_lo >= 0 ? cent[3 * tr.g_lo + d] : 0.f;
+      tr.hi[d] = tr.g_hi >= 0 ? cent[3 * tr.g_hi + d] : 0.f;
+    }
+    // raw rows in bf16, zero past each centroid's count and past 3 + c;
     // kGather loads issued before their stores, so their latencies overlap.
     // Lane steps through the [16, k1p] tile 32 elements at a time.
     const int dr = 32 / a.k1p, dk = 32 - dr * a.k1p;
@@ -699,9 +891,9 @@ __global__ void __launch_bounds__(kThreads, 3) sa_kernel_mma(SaArgs a) {
 #pragma unroll
       for (int u = 0; u < kGather; ++u, step(r, k)) {
         v[u] = 0.f;
-        if (r < kTile && r0 + r < kept && k < kin) {
-          const int p = gsel[r0 + r];
-          v[u] = k < 3 ? xyz[3 * p + k] : feat[(size_t)p * a.c + (k - 3)];
+        if (r < kTile && k < kin) {
+          const int p = map_p[r];
+          if (p >= 0) v[u] = k < 3 ? xyz[3 * p + k] : feat[(size_t)p * a.c + (k - 3)];
         }
       }
       r = r_start;
@@ -712,29 +904,43 @@ __global__ void __launch_bounds__(kThreads, 3) sa_kernel_mma(SaArgs a) {
       }
     }
     __syncwarp();
-    mma_layer<0>(buf_a, lda, w1s, a.k1p, a.n1p, bias, a.c1, bc + g * a.n1p, buf_b, ldb,
-                 nullptr, 0, lane);
-    if (kPoint0 && cnt[g] == 0) {  // warp-uniform; then nrows == 1, row 0 only
-      __syncwarp();
-      for (int j = lane; j < a.c1; j += 32) {
-        float h = a.b1[j];
-        for (int k = 0; k < kin; ++k) {
-          h += (k < 3 ? xyz[k] : feat[k - 3]) * a.w1f[(size_t)k * a.c1 + j];
+    mma_layer<0>(buf_a, lda, w1s, a.k1p, a.n1p, bias, a.c1, w1c, a.n1p, tr, buf_b, ldb,
+                 nullptr, lane);
+    if constexpr (kPoint0) {  // a centroid without neighbours: point 0's row
+      const unsigned zero = __ballot_sync(
+          0xffffffffu, lane < kTile && map_g[lane & 15] >= 0 && cnt[map_g[lane & 15]] == 0);
+      if (zero) {  // warp-uniform; each such row is its centroid's only one
+        __syncwarp();
+        for (int col = lane; col < a.c1; col += 32) {
+          float h = a.b1[col];
+          for (int k = 0; k < kin; ++k) {
+            h += (k < 3 ? xyz[k] : feat[k - 3]) * a.w1f[(size_t)k * a.c1 + col];
+          }
+          for (unsigned m = zero; m; m &= m - 1) {
+            const int j = __ffs(m) - 1;
+            const float* c = cent + 3 * map_g[j];
+            const float bc = recentre(w1c, a.n1p, col, c[0], c[1], c[2]);
+            buf_b[j * ldb + col] = __float2bfloat16_rn(fmaxf(h - bc, 0.f));
+          }
         }
-        buf_b[j] = __float2bfloat16_rn(fmaxf(h - bc[g * a.n1p + j], 0.f));
       }
     }
     __syncwarp();
-    mma_layer<1>(buf_b, ldb, w2s, a.n1p, a.n2p, bias + a.n1p, a.c2, nullptr, buf_a, lda,
-                 nullptr, 0, lane);
+    mma_layer<1>(buf_b, ldb, w2s, a.n1p, a.n2p, bias + a.n1p, a.c2, nullptr, 0, tr, buf_a, lda,
+                 nullptr, lane);
     __syncwarp();
-    mma_layer<2>(buf_a, lda, w3s, a.n2p, a.n3p, bias + a.n1p + a.n2p, a.c3, nullptr, nullptr, 0,
-                 pmax + g * a.c3, nrows - r0, lane);
+    if (tr.g_all >= 0) {  // warp-uniform
+      mma_layer<2>(buf_a, lda, w3s, a.n2p, a.n3p, bias + a.n1p + a.n2p, a.c3, nullptr, 0, tr,
+                   nullptr, 0, pmax, lane);
+    } else {
+      mma_layer<3>(buf_a, lda, w3s, a.n2p, a.n3p, bias + a.n1p + a.n2p, a.c3, nullptr, 0, tr,
+                   nullptr, 0, pmax, lane);
+    }
     __syncwarp();
   }
   __syncthreads();
   float* out = a.out + ((size_t)b * a.s + s0) * a.c3;
-  for (int i = tid; i < kTs * a.c3; i += kThreads) {
+  for (int i = tid; i < cpb * a.c3; i += kThreads) {
     if (s0 + i / a.c3 < a.s) out[i] = __int_as_float(pmax[i]);
   }
 }
@@ -755,6 +961,7 @@ struct Plan {
   void (*kernel)(SaArgs);
   size_t smem;
   int mma;  // 1: the tensor-core kernel
+  int cpb;  // centroids per block
 };
 
 template <bool kRaw, bool kPoint0, bool kFast>
@@ -762,20 +969,26 @@ void pick(int mma, Plan* p) {
   p->kernel = mma ? sa_kernel_mma<kRaw, kPoint0, kFast> : sa_kernel<kRaw, kPoint0, kFast>;
 }
 
-// The MLP kernel for these widths and options and its dynamic shared
-// memory. bf16 takes the tensor-core kernel when it fits the device's shared
-// memory, else the CUDA-core kernel.
-cudaError_t plan(int c, int kp, int c1, int c2, int c3, int bf16, int in_cloud, int raw,
-                 int fast, Plan* p) {
+// The MLP launch for b rows of s centroids at these widths and options: the
+// kernel, its dynamic shared memory and its centroids per block. bf16 takes
+// the tensor-core kernel when it fits the device's shared memory at 8
+// centroids a block, else the CUDA-core kernel (8 a block). The
+// tensor-core kernel takes the largest of 32, 16 and 8 centroids a block
+// whose shared memory fits and whose grid still fills the card once
+// (b * ceil(s / cpb) blocks at least the blocks per SM at that size times
+// the SMs), else 8. cpb_req (8, 16 or 32; 0: the rule's choice) sets it
+// instead; cudaErrorInvalidValue where the kernel does not take it.
+cudaError_t plan(int b, int s, int c, int kp, int c1, int c2, int c3, int bf16, int in_cloud,
+                 int raw, int fast, int cpb_req, Plan* p) {
   const int k1p = round16(3 + c), n1p = round16(c1), n2p = round16(c2), n3p = round16(c3);
-  const size_t mma_smem =
-      2 * ((size_t)n1p * (k1p + kPad) + (size_t)n2p * (n1p + kPad) + (size_t)n3p * (n2p + kPad) +
-           (size_t)kTs * kTile * (std::max(k1p, n2p) + n1p + 2 * kPad)) +
-      4 * ((size_t)kTs * (n1p + c3 + kNs) + kTs + n1p + n2p + n3p);
-  int optin = 0;
+  if (cpb_req != 0 && cpb_req != 8 && cpb_req != 16 && cpb_req != 32) {
+    return cudaErrorInvalidValue;
+  }
+  int optin = 0, sms = 0;
   cudaError_t e = device_attribute(cudaDevAttrMaxSharedMemoryPerBlockOptin, &optin);
+  if (e == cudaSuccess) e = device_attribute(cudaDevAttrMultiProcessorCount, &sms);
   if (e != cudaSuccess) return e;
-  p->mma = bf16 && mma_smem <= (size_t)optin;
+  p->mma = bf16 && mma_smem_bytes(k1p, n1p, n2p, n3p, c3, kTs) <= (size_t)optin;
   if (fast) {
     pick<false, false, true>(p->mma, p);
   } else if (raw) {
@@ -785,11 +998,38 @@ cudaError_t plan(int c, int kp, int c1, int c2, int c3, int bf16, int in_cloud, 
   } else {
     pick<false, true, false>(p->mma, p);
   }
-  p->smem = p->mma ? mma_smem
-                   : ((size_t)kRows * (kp + c1 + c2) + c1 + (size_t)kGroups * c3) * sizeof(float) +
-                         (kTs * kNs + kTs) * sizeof(int);
-  return cudaFuncSetAttribute(p->kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)p->smem);
+  if (!p->mma) {
+    if (cpb_req != 0 && cpb_req != kTs) return cudaErrorInvalidValue;
+    p->cpb = kTs;
+    p->smem = ((size_t)kRows * (kp + c1 + c2) + c1 + (size_t)kGroups * c3) * sizeof(float) +
+              (kTs * kNs + kTs) * sizeof(int);
+    return cudaFuncSetAttribute(p->kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)p->smem);
+  }
+  for (int cpb = 32; cpb >= 8; cpb /= 2) {
+    if (cpb_req != 0 && cpb != cpb_req) continue;
+    const size_t smem = mma_smem_bytes(k1p, n1p, n2p, n3p, c3, cpb);
+    if (smem > (size_t)optin) {
+      if (cpb_req != 0) return cudaErrorInvalidValue;
+      continue;
+    }
+    const long blocks = (long)b * ((s + cpb - 1) / cpb);
+    // a grid below one block a SM never fills the card; at 8 blocks a SM
+    // (2048 threads) and above it always does, without asking
+    if (cpb_req == 0 && cpb != kTs && blocks < sms) continue;
+    e = cudaFuncSetAttribute(p->kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    if (cpb_req == 0 && cpb != kTs && blocks < 8L * sms) {
+      int per_sm = 0;
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, p->kernel, kThreads, smem);
+      if (e != cudaSuccess) return e;
+      if (blocks < (long)per_sm * sms) continue;
+    }
+    p->cpb = cpb;
+    p->smem = smem;
+    return cudaSuccess;
+  }
+  return cudaErrorInvalidValue;  // not reached: cpb = 8 fits (p->mma)
 }
 
 struct SelPlan {
@@ -857,21 +1097,24 @@ int mpn_sa_select(const float* xyz, const float* cent, int b, int n, int s, floa
 // centroid without neighbours point 0's layer-1 row; raw == null writes no
 // raw block, and a raw block needs in_cloud = 1 and the exact grouping.
 // kp, c1 and c2 must be multiples of 4. w1t, w2t, w3t: the bf16 W^T copies,
-// zero-padded to multiples of 16 (needed for bf16, null for f32). Both
+// zero-padded to multiples of 16 (needed for bf16, null for f32). cpb:
+// the MLP kernel's centroids per block, 0 for the plan's choice, else 8, 16
+// or 32 (the tensor-core kernel where it fits; the CUDA-core kernel takes
+// 8 only); another value, or one that does not fit, is refused. Both
 // launches go on `stream`. Returns a cudaError_t.
 int mpn_sa(const float* xyz, const float* feat, const float* cent, const int* chunks,
            int window, const float* w1, const float* w1f, const float* b1, const float* w2,
            const float* b2, const float* w3, const float* b3, const bf16_t* w1t,
            const bf16_t* w2t, const bf16_t* w3t, int b, int n, int s, int c, int kp, int c1,
            int c2, int c3, float r2, int bf16, int in_cloud, float* out, int* idx, int* count,
-           float* raw, int select, void* stream) {
+           float* raw, int select, int cpb, void* stream) {
   const int fast = chunks != nullptr;
   if (kp % 4 || c1 % 4 || c2 % 4 || kp < 3 + c || b < 1 || b > 65535 || s < 1 ||
       (raw && !in_cloud) || (fast && (raw || !in_cloud)) || (!fast && !count) ||
       (bf16 && !(w1t && w2t && w3t)))
     return (int)cudaErrorInvalidValue;
   Plan p;
-  cudaError_t e = plan(c, kp, c1, c2, c3, bf16, in_cloud, raw != nullptr, fast, &p);
+  cudaError_t e = plan(b, s, c, kp, c1, c2, c3, bf16, in_cloud, raw != nullptr, fast, cpb, &p);
   if (e != cudaSuccess) return (int)e;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!fast && select) {
@@ -880,23 +1123,26 @@ int mpn_sa(const float* xyz, const float* feat, const float* cent, const int* ch
   }
   SaArgs a{xyz, feat, cent, chunks, w1, w1f, b1, w2, b2, w3, b3, w1t, w2t, w3t, out, idx,
            fast ? nullptr : count, raw, n, s, c, kp, c1, c2, c3, window, bf16,
-           round16(3 + c), round16(c1), round16(c2), round16(c3), r2};
-  p.kernel<<<dim3((s + kTs - 1) / kTs, b), kThreads, p.smem, st>>>(a);
+           round16(3 + c), round16(c1), round16(c2), round16(c3), r2, p.cpb};
+  p.kernel<<<dim3((s + p.cpb - 1) / p.cpb, b), kThreads, p.smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
-// The MLP launch mpn_sa makes for these widths and options: *mma 1 for the
-// tensor-core kernel, its dynamic shared memory in bytes and the blocks of
-// it that fit on one SM. Returns a cudaError_t.
-int mpn_sa_plan(int c, int kp, int c1, int c2, int c3, int bf16, int in_cloud, int raw, int fast,
-                int* mma, int* smem, int* blocks_per_sm) {
-  Plan p;
-  cudaError_t e = plan(c, kp, c1, c2, c3, bf16, in_cloud, raw, fast, &p);
+// The MLP launch mpn_sa makes for b rows of s centroids at these widths and
+// options, with cpb as mpn_sa takes it: *mma 1 for the tensor-core kernel,
+// its dynamic shared memory in bytes, the blocks of it that fit on one SM
+// and its centroids per block. Returns a cudaError_t.
+int mpn_sa_plan(int b, int s, int c, int kp, int c1, int c2, int c3, int bf16, int in_cloud,
+                int raw, int fast, int cpb, int* mma, int* smem, int* blocks_per_sm,
+                int* cpb_out) {
+  Plan p{};
+  cudaError_t e = plan(b, s, c, kp, c1, c2, c3, bf16, in_cloud, raw, fast, cpb, &p);
   if (e == cudaSuccess) {
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, p.kernel, kThreads, p.smem);
   }
   *mma = p.mma;
   *smem = (int)p.smem;
+  *cpb_out = p.cpb;
   return (int)e;
 }
 

@@ -19,8 +19,9 @@ Port of ``mpinets_tpu/kernels/pallas_ops.py``:
 
 The SA stages take their MLP as :class:`SAWeights`, rounded and laid out
 for the kernel once by :func:`prepare_sa_weights`. Under bf16 the kernel
-runs the MLP on the tensor cores from the bf16 copies there
-(:func:`sa_launch_plan` says which kernel a stage gets).
+runs the MLP on the tensor cores from the bf16 copies there, 8, 16 or 32
+centroids a block (:func:`sa_launch_plan` says which kernel a stage gets,
+and its centroids per block).
 
 A wrapper given CPU tensors computes the plain version, which repeats the
 kernel's arithmetic (the raw-row layer 1 with the folded recentring bias,
@@ -74,6 +75,9 @@ FPS_MAX_POINTS = 8192
 #: Largest cloud the ball-query kernel stages in shared memory (x, y, z f32:
 #: 192 KB, one block per SM; 75 KB and two or more at the 6272-point cloud).
 SELECT_MAX_POINTS = 16384
+#: Centroids per block the tensor-core SA MLP kernel takes (the CUDA-core
+#: kernel takes 8 only); its launch plan picks one (:func:`sa_launch_plan`).
+SA_CENTROIDS_PER_BLOCK = (8, 16, 32)
 
 #: Kernel launches since the last :func:`reset_launches`, by wrapper.
 LAUNCHES: Dict[str, int] = {"fps": 0, "sa_select": 0, "sa": 0, "sa_raw": 0, "sa_v3": 0,
@@ -91,8 +95,8 @@ _SIGNATURES = {
     "mpn_fps": [_P] + [_I] * 7 + [_P] * 3,
     "mpn_fps_plan": [_I] * 6 + [_P] * 3,
     "mpn_sa": ([_P] * 4 + [_I] + [_P] * 10 + [_I] * 8 + [ctypes.c_float, _I, _I] + [_P] * 4
-               + [_I, _P]),
-    "mpn_sa_plan": [_I] * 9 + [_P] * 3,
+               + [_I, _I, _P]),
+    "mpn_sa_plan": [_I] * 12 + [_P] * 4,
     "mpn_sa_select": [_P, _P, _I, _I, _I, ctypes.c_float, _P, _P, _P],
     "mpn_sa_select_plan": [_I] * 3 + [_P] * 3,
     "mpn_probe_scan": [_P] * 3 + [_I] * 3 + [ctypes.c_float, _I, _P, _P],
@@ -586,13 +590,17 @@ def sa_select(xyz, centroids, radius: float):
 def sa_kernel(xyz, features, centroids, weights: SAWeights, radius: float,
               chunks: Optional[torch.Tensor] = None, in_cloud: bool = True,
               return_raw: bool = False,
-              selection: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+              selection: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              centroids_per_block: Optional[int] = None):
     """The SA kernels alone, on CUDA tensors: the exact grouping (``chunks``
     None: the ball-query kernel, then the MLP kernel reading its selection)
     or the window scan over ``chunks`` int32 [B, S, W] (one kernel);
     ``in_cloud`` and ``return_raw`` as in :func:`sa_plain`. ``selection``
     (exact only): a given (idx, count), as :func:`sa_select` returns them,
-    so only the MLP kernel launches. What :func:`sa_stage` and
+    so only the MLP kernel launches. ``centroids_per_block`` (one of
+    :data:`SA_CENTROIDS_PER_BLOCK`) sets the MLP kernel's centroids per
+    block instead of its launch plan, to compare plans; a value the kernel
+    does not take at these widths raises. What :func:`sa_stage` and
     :func:`sa_stage_fast` launch."""
     extra = () if chunks is None else (chunks,)
     extra += () if selection is None else tuple(selection)
@@ -602,6 +610,7 @@ def sa_kernel(xyz, features, centroids, weights: SAWeights, radius: float,
         raise ValueError("the raw block is an output of the exact in-cloud (v8) scan only")
     if chunks is not None and (selection is not None or not in_cloud):
         raise ValueError("the window scan selects for itself, centroids in the cloud")
+    _check_cpb(centroids_per_block)
     b, n, _ = xyz.shape
     c = features.shape[-1]
     s = centroids.shape[1]
@@ -647,6 +656,7 @@ def sa_kernel(xyz, features, centroids, weights: SAWeights, radius: float,
         _r2(radius), int(w.compute_dtype == torch.bfloat16), int(in_cloud), out.data_ptr(),
         idx.data_ptr(), None if count is None else count.data_ptr(),
         None if raw is None else raw.data_ptr(), int(selection is None),
+        centroids_per_block or 0,
     )
     if chunks is not None:
         name = "sa_fast"
@@ -658,21 +668,34 @@ def sa_kernel(xyz, features, centroids, weights: SAWeights, radius: float,
     return (out, idx, raw) if return_raw else (out, idx)
 
 
-def sa_launch_plan(weights: SAWeights, c: int, in_cloud: bool = True,
-                   raw: bool = False, fast: bool = False) -> Dict[str, int]:
-    """The MLP launch :func:`sa_kernel` makes for these weights and C input
-    features on the current CUDA device (``fast``: the window-scan
-    instantiation): ``mma`` 1 for the tensor-core kernel (bf16), 0 for the
-    CUDA-core one; its dynamic shared memory in bytes; and the blocks of it
-    that fit on one SM."""
+def _check_cpb(centroids_per_block: Optional[int]) -> None:
+    if centroids_per_block is not None and centroids_per_block not in SA_CENTROIDS_PER_BLOCK:
+        raise ValueError(f"the SA MLP kernel takes {SA_CENTROIDS_PER_BLOCK} centroids per block;"
+                         f" got {centroids_per_block}")
+
+
+def sa_launch_plan(weights: SAWeights, c: int, b: int, s: int, in_cloud: bool = True,
+                   raw: bool = False, fast: bool = False,
+                   centroids_per_block: Optional[int] = None) -> Dict[str, int]:
+    """The MLP launch :func:`sa_kernel` makes for these weights, C input
+    features, B rows and S centroids on the current CUDA device (``fast``:
+    the window-scan instantiation; ``centroids_per_block`` as
+    :func:`sa_kernel` takes it): ``mma`` 1 for the tensor-core kernel
+    (bf16), 0 for the CUDA-core one; its dynamic shared memory in bytes; the
+    blocks of it that fit on one SM; and ``cpb``, its centroids per block.
+    Raises where the kernel does not take ``centroids_per_block``."""
+    _check_cpb(centroids_per_block)
     kp, c1 = weights.w1.shape
     c2, c3 = weights.w2.shape[1], weights.w3.shape[1]
-    out = [ctypes.c_int() for _ in range(3)]
-    rc = _library("sa").mpn_sa_plan(c, kp, c1, c2, c3, int(weights.compute_dtype == torch.bfloat16),
-                                    int(in_cloud), int(raw), int(fast), *map(ctypes.byref, out))
+    out = [ctypes.c_int() for _ in range(4)]
+    rc = _library("sa").mpn_sa_plan(b, s, c, kp, c1, c2, c3,
+                                    int(weights.compute_dtype == torch.bfloat16), int(in_cloud),
+                                    int(raw), int(fast), centroids_per_block or 0,
+                                    *map(ctypes.byref, out))
     if rc != 0:
-        raise RuntimeError(f"mpn_sa_plan failed: CUDA error {rc}")
-    return dict(zip(("mma", "smem_bytes", "blocks_per_sm"), (v.value for v in out)))
+        raise RuntimeError(f"mpn_sa_plan failed: CUDA error {rc} (centroids_per_block="
+                           f"{centroids_per_block})")
+    return dict(zip(("mma", "smem_bytes", "blocks_per_sm", "cpb"), (v.value for v in out)))
 
 
 def sa_select_plan(b: int, n: int, s: int) -> Dict[str, int]:

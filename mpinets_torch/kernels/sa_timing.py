@@ -2,7 +2,7 @@
 batched rollout, through the package's public API alone, so that one file
 times two checkouts of ``mpinets_torch`` in turns on one card:
 
-    python mpinets_torch/kernels/sa_timing.py [--batch 1 3 256] [--seed 0]
+    python mpinets_torch/kernels/sa_timing.py [--batch 1 3 256] [--seed 0] [--cpb 8 16 32]
     PYTHONPATH=OTHER_CHECKOUT python mpinets_torch/kernels/sa_timing.py
 
 The second form imports ``mpinets_torch`` from OTHER_CHECKOUT: a script run
@@ -15,8 +15,13 @@ is also timed on the small-cloud trainer's shapes (192 -> 16 on the first
 stage's time is the mean of 5 calls by CUDA events after a warm-up, queued
 behind a device busy-wait (all of the stage's launches: on the exact path
 the ball query and the MLP). The rollout: B=256, ``fast_grouping=4``,
-env-steps/s from 30 - 5 steps, the median of three. Prints one JSON line
-with the card's name and power limit.
+env-steps/s from 30 - 5 steps, the median of three. ``--cpb`` also times
+the bf16 SA MLP kernel alone under each given number of centroids per block
+(the exact MLP reading the ball query's selection at SA0 and SA1, and the
+fast SA0), through ``ops.sa_kernel``'s ``centroids_per_block`` (a checkout
+whose kernel has no such choice cannot take it); a number the kernel does
+not take at a stage's widths is recorded as null. Prints one JSON line with
+the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -48,6 +53,8 @@ def main(argv=None) -> None:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--batch", type=int, nargs="+", default=[1, 3, 10, 64, 256])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cpb", type=int, nargs="*", default=[],
+                    help="centroids per block to time the SA MLP kernel at")
     args = ap.parse_args(argv)
 
     import mpinets_torch
@@ -78,7 +85,7 @@ def main(argv=None) -> None:
         pc = assemble_point_cloud(problem.q0, problem.target_rot, problem.target_trans,
                                   problem.scene, generator=gen)
 
-    times = {}
+    times, by_cpb, plans = {}, {}, {}
     for b in args.batch:
         xyz, feat = pc[:b, :, :3].contiguous(), pc[:b, :, 3:].contiguous()
         c0 = ops.furthest_point_sample_with_coords(xyz, 512)[1]
@@ -101,6 +108,25 @@ def main(argv=None) -> None:
                     lambda: ops.sa_stage(*stage_args, w, r, **kw))
         times[f"sa_fast SA0 W=4 B={b}"] = _ms(
             lambda: ops.sa_stage_fast(xyz, feat, c0, w0, r0, window=4))
+        if not args.cpb:
+            continue
+        chunks = ops.chunk_window(xyz, c0, 4)
+        for label, (xs, fs, cs), w, r, fast in (("sa SA0", (xyz, feat, c0), w0, r0, False),
+                                                ("sa_fast SA0 W=4", (xyz, feat, c0), w0, r0, True),
+                                                ("sa SA1", (c0, f0, c1), w1, r1, False)):
+            key = f"{label} B={b}"
+            plans[key] = ops.sa_launch_plan(w, fs.shape[-1], b, cs.shape[1], fast=fast)["cpb"]
+            sel = None if fast else ops.sa_select(xs, cs, r)
+            for cpb in args.cpb:
+                try:
+                    ops.sa_launch_plan(w, fs.shape[-1], b, cs.shape[1], fast=fast,
+                                       centroids_per_block=cpb)
+                except RuntimeError:   # beyond shared memory at these widths
+                    by_cpb[f"{key} cpb={cpb}"] = None
+                    continue
+                by_cpb[f"{key} cpb={cpb}"] = _ms(lambda: ops.sa_kernel(
+                    xs, fs, cs, w, r, chunks if fast else None, selection=sel,
+                    centroids_per_block=cpb))
 
     apply_fn = fused.make_fused_apply(bf16, fast_grouping=4)
     rollouts = {n: make_rollout_fn(model, max_steps=n, stop_on_success=False,
@@ -119,7 +145,8 @@ def main(argv=None) -> None:
         short, long_ = run(5), run(30)
         rates.append(256 * 25 / (long_ - short))
     print(json.dumps({"package": mpinets_torch.__file__, "card": smi, "build_s": build_s,
-                      "ms": times, "env_steps_per_s": rates,
+                      "ms": times, "mlp_ms_by_cpb": by_cpb, "plan_cpb": plans,
+                      "env_steps_per_s": rates,
                       "env_steps_per_s_median": float(np.median(rates))}), flush=True)
 
 

@@ -217,11 +217,20 @@ VARIANTS = {"sa": dict(impl="v8", centroids_in_cloud=True),
             "sa_v3": dict(impl="v3", centroids_in_cloud=False),
             "sa_fast": None}
 SPREAD = (0, 1, 15, 16, 17, 31, 127, 128, 200)  # in-ball points per centroid
+# 49 centroids, so blocks of 8, 16 and 32 centroids (partial ones too) pack
+# rows across centroids: 16 one-row centroids fill the first tile, one of
+# 128 fills the next 8 tiles alone, and the rest put tile edges inside and
+# between centroids (test_sa0_spread_puts_tile_edges_inside_and_between).
+SPREAD_SA0 = (0, 1, 1, 0, 1, 0, 1, 1, 0, 1, 1, 0, 1, 0, 0, 1, 128,
+              2, 3, 5, 13, 15, 16, 17, 31, 200, 3, 5, 2, 1, 0, 13, 16,
+              17, 31, 15, 16, 0, 1, 2, 3, 5, 13, 1, 1, 128, 0, 200, 3)
 SPREAD_R = 0.1
+# the count-spread cases: (counts, C, (C1, C2, C3)) at SA0 and SA1 widths
+SPREADS = {"sa0": (SPREAD_SA0, 1, (64, 64, 64)), "sa1": (SPREAD, 64, (128, 128, 256))}
 
 
-def _spread_inputs(seed, c=64, widths=(128, 128, 256), masked=False, b=2):
-    """Centroid i at (x0 - i, 0, 0) with SPREAD[i] points inside its ball
+def _spread_inputs(seed, c=64, widths=(128, 128, 256), masked=False, b=2, spread=SPREAD):
+    """Centroid i at (x0 - i, 0, 0) with spread[i] points inside its ball
     of radius SPREAD_R, shuffled among 400 points far from every ball.
     ``masked``: x0 = -20 and positive weights with W1's x row 1 and b1 = 1,
     so a zero raw row past the count (layer-1 input b1 - W1[:3]^T c, about
@@ -229,11 +238,11 @@ def _spread_inputs(seed, c=64, widths=(128, 128, 256), masked=False, b=2):
     else x0 = 0 and weights N(0, 0.2^2)."""
     rng = np.random.default_rng(seed)
     x0 = -20.0 if masked else 0.0
-    cent = np.array([(x0 - i, 0.0, 0.0) for i in range(len(SPREAD))], np.float32)
+    cent = np.array([(x0 - i, 0.0, 0.0) for i in range(len(spread))], np.float32)
     xyz = []
     for _ in range(b):
         parts = [rng.uniform(-5, 5, (400, 3)) + (0, 0, 10)]
-        for centre, k in zip(cent, SPREAD):
+        for centre, k in zip(cent, spread):
             d = rng.normal(size=(k, 3))
             d *= 0.9 * SPREAD_R * rng.uniform(0, 1, (k, 1)) ** (1 / 3) / np.linalg.norm(
                 d, axis=1, keepdims=True)
@@ -256,6 +265,12 @@ def _spread_inputs(seed, c=64, widths=(128, 128, 256), masked=False, b=2):
     return [torch.from_numpy(a) for a in (xyz, feat, cent, *weights)]
 
 
+def _spread_case(widths, seed, masked=False, counts=None):
+    """The count-spread input at these widths (counts: SPREADS' own)."""
+    spread, c, mlp = SPREADS[widths]
+    return _spread_inputs(seed, c, mlp, masked, spread=counts or spread)
+
+
 def _variant(variant, args, device, radius, dtype=torch.bfloat16):
     """One SA variant (counted under its name) on device."""
     xyz, feat, cent, w = _stage_args(args, device, dtype)
@@ -268,7 +283,9 @@ def _check_mma(cuda, variant, args, radius):
     """bf16 kernel against plain: the tensor-core kernel is the one launched,
     idx equal, raw bit-equal, features within 1e-2 x max(1, max|f|)."""
     w = _stage_args(args, cuda)[3]
-    plan = ops.sa_launch_plan(w, args[1].shape[-1], variant != "sa_v3", variant == "sa_raw")
+    b, _, c = args[1].shape
+    plan = ops.sa_launch_plan(w, c, b, args[2].shape[1], variant != "sa_v3", variant == "sa_raw",
+                              variant == "sa_fast")
     assert plan["mma"] == 1, plan
     before = ops.LAUNCHES[variant]
     out = _variant(variant, args, cuda, radius)
@@ -296,12 +313,103 @@ def test_sa_mma_matches_plain(cuda, variant, widths):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("widths", sorted(SPREADS))
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
-def test_sa_mma_counts_across_tile_edges(cuda, variant, masked):
-    """Counts on both sides of every tile edge; ``masked``: rows past the
-    count would win the max-pool if they entered it."""
-    _check_mma(cuda, variant, _spread_inputs(18 + masked, masked=masked), SPREAD_R)
+def test_sa_mma_counts_across_tile_edges(cuda, variant, masked, widths):
+    """Counts on both sides of every tile edge, and (SA0 widths) packed
+    tiles holding 1 to 16 centroids; ``masked``: rows past the count would
+    win the max-pool if they entered it."""
+    _check_mma(cuda, variant, _spread_case(widths, 18 + masked, masked), SPREAD_R)
+
+
+def _kernel_variant(variant, args, radius, cpb):
+    """One bf16 SA variant through sa_kernel at cpb centroids per block."""
+    xyz, feat, cent, w = args
+    if variant == "sa_fast":
+        chunks = ops.chunk_window(xyz, cent, -(-xyz.shape[1] // 128))
+        return ops.sa_kernel(xyz, feat, cent, w, radius, chunks, centroids_per_block=cpb)
+    kw = VARIANTS[variant]
+    return ops.sa_kernel(xyz, feat, cent, w, radius, None, kw["impl"] != "v3",
+                         kw.get("return_raw", False), centroids_per_block=cpb)
+
+
+# centroids per block the tensor-core kernel takes at each width: SA1's
+# weights and tiles leave no room for 32 centroids' selections and max-pools
+FITTING_CPB = {"sa0": (8, 16, 32), "sa1": (8, 16)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", sorted(SPREADS))
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_sa_mma_bit_equal_across_centroids_per_block(cuda, variant, widths):
+    """idx, raw block and features bit-equal under every cpb the kernel
+    takes at these widths (an mma row depends on its own A row only), on
+    the 49-centroid spread, whose packed tiles straddle 1 to 16 centroids;
+    one that does not fit raises."""
+    args = _stage_args(_spread_case(widths, 24, counts=SPREAD_SA0), cuda)
+    b, _, c = args[1].shape
+    outs = {}
+    for cpb in ops.SA_CENTROIDS_PER_BLOCK:
+        plan_args = (args[3], c, b, args[2].shape[1], variant != "sa_v3", variant == "sa_raw",
+                     variant == "sa_fast", cpb)
+        if cpb not in FITTING_CPB[widths]:
+            with pytest.raises(RuntimeError):
+                ops.sa_launch_plan(*plan_args)
+            with pytest.raises(RuntimeError):
+                _kernel_variant(variant, args, SPREAD_R, cpb)
+            continue
+        plan = ops.sa_launch_plan(*plan_args)
+        assert (plan["mma"], plan["cpb"]) == (1, cpb), plan
+        outs[cpb] = _kernel_variant(variant, args, SPREAD_R, cpb)
+    torch.cuda.synchronize()
+    ref = outs[8]
+    for cpb, out in outs.items():
+        assert len(out) == len(ref)
+        for got, want in zip(out, ref):
+            assert torch.equal(got, want), (cpb, (got != want).sum().item())
+
+
+@pytest.mark.cuda
+def test_sa_centroids_per_block_outside_the_set_or_beyond_shared_memory_raises(cuda):
+    """An override outside {8, 16, 32} raises before any launch; one the
+    kernel does not take (SA1's bf16 widths at 32, the CUDA-core kernel at
+    16 or 32) raises from the plan and from the launch, never falls back."""
+    for widths, dtype, refused in (("sa1", torch.bfloat16, (32,)),
+                                   ("sa0", torch.float32, (16, 32))):
+        args = _stage_args(_spread_case(widths, 25), cuda, dtype)
+        b, _, c = args[1].shape
+        s = args[2].shape[1]
+        for cpb in (0, 4, 12, 64):
+            with pytest.raises(ValueError, match="centroids per block"):
+                ops.sa_launch_plan(args[3], c, b, s, centroids_per_block=cpb)
+            with pytest.raises(ValueError, match="centroids per block"):
+                ops.sa_kernel(*args, SPREAD_R, centroids_per_block=cpb)
+        for cpb in refused:
+            with pytest.raises(RuntimeError):
+                ops.sa_launch_plan(args[3], c, b, s, centroids_per_block=cpb)
+            before = dict(ops.LAUNCHES)
+            with pytest.raises(RuntimeError, match="mpn_sa failed"):
+                ops.sa_kernel(*args, SPREAD_R, centroids_per_block=cpb)
+            assert ops.LAUNCHES == before
+        assert ops.sa_launch_plan(args[3], c, b, s, centroids_per_block=8)["cpb"] == 8
+
+
+@pytest.mark.cuda
+def test_sa_launch_plan_takes_more_centroids_per_block_at_large_batch(cuda):
+    """SA0's widths: 32 centroids a block at B=64 and 256 (the grid still
+    fills the card), 8 at B <= 3; SA1 stays within shared memory."""
+    cases = {"sa0": (1, (64, 64, 64), 512), "sa1": (64, (128, 128, 256), 128)}
+    plans = {}
+    for name, (c, mlp, s) in cases.items():
+        w = _stage_args(_sa_inputs(26, b=1, n=200, s=8, c=c, widths=mlp), cuda)[3]
+        for b in (1, 3, 64, 256):
+            for fast in (False, True):
+                plans[name, b, fast] = ops.sa_launch_plan(w, c, b, s, fast=fast)
+    for fast in (False, True):
+        assert [plans["sa0", b, fast]["cpb"] for b in (1, 3, 64, 256)] == [8, 8, 32, 32], plans
+        assert all(plans["sa1", b, fast]["cpb"] in FITTING_CPB["sa1"] for b in (1, 3, 64, 256))
+    assert all(p["mma"] == 1 and p["blocks_per_sm"] >= 1 for p in plans.values()), plans
 
 
 @pytest.mark.cuda
@@ -310,7 +418,7 @@ def test_sa_bf16_beyond_shared_memory_takes_the_cuda_core_kernel(cuda):
     kernel, in bf16, against plain."""
     args = _sa_inputs(20, b=2, n=600, s=20, c=64, widths=(512, 512, 64))
     w = _stage_args(args, cuda)[3]
-    assert ops.sa_launch_plan(w, 64)["mma"] == 0
+    assert ops.sa_launch_plan(w, 64, 2, 20)["mma"] == 0
     feats, idx = ops.sa_stage(*_stage_args(args, cuda), radius=0.3, impl="v8",
                               centroids_in_cloud=True)
     torch.cuda.synchronize()
@@ -321,23 +429,53 @@ def test_sa_bf16_beyond_shared_memory_takes_the_cuda_core_kernel(cuda):
     assert (feats.cpu() - ref).abs().max().item() <= 1e-2 * scale
 
 
+@pytest.mark.parametrize("widths", sorted(SPREADS))
 @pytest.mark.parametrize("masked", [False, True])
-def test_spread_inputs_cross_every_tile_edge(masked):
-    """CPU: each centroid keeps SPREAD[i] neighbours (128 at most)."""
-    xyz, _, cent = _spread_inputs(18 + masked, masked=masked)[:3]
+def test_spread_inputs_cross_every_tile_edge(masked, widths):
+    """CPU: each centroid keeps its spread count of neighbours (128 at most),
+    under the plain ball query too."""
+    spread = SPREADS[widths][0]
+    args = _spread_case(widths, 18 + masked, masked)
+    xyz, _, cent = args[:3]
     inside = ((xyz[:, None] - cent[:, :, None]) ** 2).sum(-1) < SPREAD_R ** 2
-    assert inside.sum(-1).tolist() == [list(SPREAD)] * 2
-    _, idx = _variant("sa", _spread_inputs(18 + masked, masked=masked), "cpu", SPREAD_R)
-    kept = [min(k, 128) for k in SPREAD]
-    assert ((idx != idx[..., :1]).sum(-1) + 1).tolist()[0][1:] == kept[1:]
+    assert inside.sum(-1).tolist() == [list(spread)] * 2
+    _, count = ops.sa_select_plain(xyz, cent, SPREAD_R)
+    assert count.tolist() == [[min(k, 128) for k in spread]] * 2
+    _, idx = _variant("sa", args, "cpu", SPREAD_R)
+    kept = [min(k, 128) for k in spread]
+    assert ((idx != idx[..., :1]).sum(-1) + 1).tolist()[0] == [max(k, 1) for k in kept]
 
 
-def test_masked_rows_would_win_the_max_pool():
+@pytest.mark.parametrize("cpb", ops.SA_CENTROIDS_PER_BLOCK)
+def test_sa0_spread_puts_tile_edges_inside_and_between_centroids(cpb):
+    """CPU: packing the SA0 spread's rows, max(min(count, 128), 1) a
+    centroid, block by block of cpb centroids, puts 16-row tile edges both
+    inside a centroid's rows and between two centroids, and gives tiles of
+    one centroid and of several (16 in one at cpb 16 and 32)."""
+    xyz, _, cent = _spread_case("sa0", 18)[:3]
+    _, count = ops.sa_select_plain(xyz, cent, SPREAD_R)
+    inside = between = 0
+    per_tile = set()
+    for b0 in range(0, count.shape[1], cpb):
+        nrows = [max(k, 1) for k in count[0, b0:b0 + cpb].tolist()]
+        off = np.cumsum([0] + nrows)
+        for edge in range(16, off[-1], 16):
+            between += edge in off
+            inside += any(o < edge < o + n for o, n in zip(off, nrows))
+        for t0 in range(0, off[-1], 16):
+            per_tile.add(sum(o < t0 + 16 and o + n > t0 for o, n in zip(off, nrows)))
+    assert inside > 0 and between > 0, (inside, between)
+    assert 1 in per_tile and max(per_tile) == (8 if cpb == 8 else 16), per_tile
+
+
+@pytest.mark.parametrize("widths", sorted(SPREADS))
+def test_masked_rows_would_win_the_max_pool(widths):
     """CPU: on the masked input, a zero raw row -- what fills a tile past the
     count -- gives every centroid with 0 < count < 128 that is not a multiple
     of 16 features far above its real ones, so a kernel that let such rows
     into the max would fail the 1e-2 gate many times over."""
-    args = _spread_inputs(19, masked=True)
+    spread = SPREADS[widths][0]
+    args = _spread_case(widths, 19, masked=True)
     feats, _ = _variant("sa", args, "cpu", SPREAD_R)
     w = _stage_args(args, "cpu")[3]
     rnd = lambda t: t.to(torch.bfloat16).float()
@@ -346,7 +484,7 @@ def test_masked_rows_would_win_the_max_pool():
     zero_row = torch.relu(h @ w.w3 + w.b3)                   # [B, S, C3]
     gap = (zero_row - feats).amax(-1)
     scale = max(1.0, feats.abs().max().item())
-    for i, k in enumerate(SPREAD):
+    for i, k in enumerate(spread):
         if 0 < k < 128 and k % 16:
             assert (gap[:, i] > 10 * 1e-2 * scale).all(), (k, gap[:, i], scale)
 

@@ -481,23 +481,31 @@ def stage_inputs(cache, b, cloud, xyz, feat, weights, radii):
     return cache[b, cloud]
 
 
-def time_at_shape(key, launches, cache, xyz, feat, weights, radii, smi):
-    """Kernel ``key[0]`` at batch, cloud and centroids ``key[1:]`` (bf16):
-    against its plain version (FPS and ball-query indices equal, MLP
-    features within BF16_TOL x max(1, max|f|)), timed with its plain
-    version, and its bound from this input's data. The SA MLP kernels
-    (sa, sa_raw, sa_v3) read the ball query's selection, as on the exact
-    path; sa_fast scans its window. -> the kernels-line entry."""
+def time_at_shape(key, launches, cache, xyz, feat, sa_w, radii, smi):
+    """Kernel ``key[0]`` at batch, cloud and centroids ``key[1:]``: against
+    its plain version (FPS and ball-query indices equal, MLP features
+    within BF16_TOL, or F32_TOL for an ``_f32`` kernel, x max(1, max|f|)),
+    timed with its plain version, and its bound from this input's data.
+    The SA MLP kernels (sa, sa_raw, sa_v3) read the ball query's
+    selection, as on the exact path; sa_fast scans its window. An SA
+    kernel runs with the weights of its type (``sa_w`` by dtype): bf16 on
+    the tensor cores, ``_f32`` on the CUDA cores, whose MLP bound takes the
+    f32 peak. -> the kernels-line entry."""
     import torch
 
     from mpinets_torch.kernels import ops
+    from mpinets_torch.probes.session import F32_FLOPS
 
-    k, b, n, s = key
+    name, b, n, s = key
+    is_f32 = name.endswith("_f32")
+    k = name.removesuffix("_f32")
+    weights = sa_w[torch.float32 if is_f32 else torch.bfloat16]
     cloud, stage = next(((c, st) for c in CLOUDS for st, shape in enumerate((c[:2], c[1:]))
                          if shape == (n, s)), (None, None))
     if cloud is None:
         raise AssertionError(f"{key}: no stage of the clouds {CLOUDS} has this shape")
-    xs, fs, cs, sel = stage_inputs(cache, b, cloud, xyz, feat, weights, radii)[stage]
+    xs, fs, cs, sel = stage_inputs(cache, b, cloud, xyz, feat, sa_w[torch.bfloat16],
+                                   radii)[stage]
     w, radius = weights[stage], radii[stage]
     c1, c2, c3 = w.w1.shape[1], w.w2.shape[1], w.w3.shape[1]
     per_row = 2.0 * ((3 + fs.shape[-1]) * c1 + c1 * c2 + c2 * c3)
@@ -545,27 +553,237 @@ def time_at_shape(key, launches, cache, xyz, feat, weights, radii, smi):
             nbytes = 4 * (xs.numel() + fs.numel() + cs.numel() + sel[0].numel() + sel[1].numel()
                           + b * s * c3 + (b * s * 128 * (3 + fs.shape[-1]) if raw else 0)) + w_bytes
         err = (out[0] - ref[0]).abs().max().item()
-        scale = max(1.0, ref[0].abs().max().item())
-        if not err <= BF16_TOL * scale:
-            raise AssertionError(f"{key}: feature error {err} > {BF16_TOL * scale}")
+        tol = (F32_TOL if is_f32 else BF16_TOL) * max(1.0, ref[0].abs().max().item())
+        if not err <= tol:
+            raise AssertionError(f"{key}: feature error {err} > {tol}")
     torch.cuda.synchronize()
     if not same:
         raise AssertionError(f"{key}: indices (or the raw block) differ from the plain version")
     ms = cuda_ms(run, 5)
     plain_ms = cuda_ms(plain, 1)
-    bnd, by = bound(nbytes, f32_ops, mlp_ops)
+    bnd, by = bound(nbytes, f32_ops, mlp_ops, F32_FLOPS if is_f32 else BF16_FLOPS)
     extra = {}
     if k == "fps":
         extra = {"plan": list(ops.fps_plan(b, n)), "ns_per_pick": ms * 1e6 / max(s - 1, 1)}
     elif k != "sa_select":
         extra = {"cpb": ops.sa_launch_plan(w, fs.shape[-1], b, s, k != "sa_v3", k == "sa_raw",
                                            k == "sa_fast")["cpb"]}
-    log(f"{k} B={b} N={n} S={s}: {launches} launches; kernel {ms:.4f} ms, plain {plain_ms:.3f}"
+    log(f"{name} B={b} N={n} S={s}: {launches} launches; kernel {ms:.4f} ms, plain {plain_ms:.3f}"
         f" ms, bound {bnd:.4f} ms ({by}), max |err| {err:.3e}"
         + "".join(f", {key} {val}" for key, val in extra.items()) + f" [{smi}]")
-    return {"name": f"{k} B={b} N={n} S={s}", "route": "cuda", "source": CUDA_SOURCES[k],
+    return {"name": f"{name} B={b} N={n} S={s}", "route": "cuda", "source": CUDA_SOURCES[k],
             "replaces": TPU_SOURCES[k], "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by, "library_ms": None, **extra}
+
+
+# The evaluation phase: cli.infer's runs (label, flags, kernels each must
+# launch, problems a group), and the reference Evaluator's metric keys
+# (mpinets_tpu/eval/metrics.py:565-663).
+EVAL_GROUP = 32
+EVAL_RUNS = (
+    ("bf16, exact", ["--batch-size", "32"], ("fps", "sa_select", "sa"), 32),
+    ("--fp32", ["--fp32", "--max-problems", "32"], ("fps", "sa_select", "sa_f32"), 32),
+    ("--fast-grouping 4", ["--fast-grouping", "4", "--max-problems", "32"],
+     ("fps", "sa_select", "sa", "sa_fast"), 32),
+    ("--use-depth", ["--use-depth", "--max-problems", "16"], ("fps", "sa_select", "sa"), 16),
+    ("--b1-timing", ["--b1-timing", "--max-problems", "8"], ("fps", "sa_select", "sa"), 8),
+)
+METRIC_KEYS = {
+    "success", "total", "skips", "time", "step time", "env collision", "self collision",
+    "joint violation", "physical violations", "average collision depth",
+    "median collision depth", "1 cm", "5 cm", "15 deg", "30 deg", "165 deg", "is smooth",
+    "average config sparc", "average eff sparc", "eff position path length",
+    "eff orientation path length",
+}
+CHECK_TOL = 1e-4          # check_trajectories, card vs CPU: floats within 1e-4 x max(1, |x|)
+CHECK_ORI_TOL_DEG = 0.05  # ... orientation errors (arccos near 0) within 0.05 deg, and the
+                          # orientation path within 0.05 deg a live segment
+DEPTH_SURFACE_TOL = 5e-3  # a sensed point's distance to a primitive's surface, m
+
+
+def eval_problem_set(rng, n=EVAL_GROUP):
+    """Two groups of ``n`` problems from a numpy seed, as port types:
+    tabletop/task-oriented and cubby/neutral-start. Each has a table and
+    2-4 boxes on it, ``q0`` inside the joint limits, a target at the FK pose
+    of a configuration near ``q0`` and a target cuboid around it; each cubby
+    problem has a negative volume beside its target."""
+    import numpy as np
+    import torch
+
+    from mpinets_torch import types as T
+    from mpinets_torch.kernels import kinematics
+    from mpinets_torch.robot import franka
+
+    lo, hi = franka.JOINT_LIMITS[:, 0], franka.JOINT_LIMITS[:, 1]
+    pad = 0.05 * (hi - lo)
+    groups = {}
+    for scene_type, problem_type in (("tabletop", "task-oriented"), ("cubby", "neutral-start")):
+        probs = []
+        for _ in range(n):
+            q0 = rng.uniform(lo + pad, hi - pad)
+            near = np.clip(q0 + rng.uniform(-0.3, 0.3, 7), lo + pad, hi - pad)
+            pos, quat = (t.double().numpy() for t in kinematics.eff_pose_quat(
+                torch.from_numpy(near.astype(np.float32))))
+            obstacles = [T.Cuboid([0.6, 0.0, -0.02], [1.0, 1.6, 0.04], [1, 0, 0, 0])]
+            for _ in range(int(rng.integers(2, 5))):
+                dims = rng.uniform(0.05, 0.2, 3)
+                centre = [rng.uniform(0.4, 0.9), rng.uniform(-0.6, 0.6), dims[2] / 2]
+                obstacles.append(T.Cuboid(centre, dims, [1, 0, 0, 0]))
+            negatives = ([T.Cuboid(pos + [0.0, 0.0, 0.25], [0.1, 0.1, 0.1], [1, 0, 0, 0])]
+                         if scene_type == "cubby" else [])
+            probs.append(T.PlanningProblem(
+                target=T.Pose(pos, quat),
+                target_volume=T.Cuboid(pos, [0.3, 0.3, 0.3], [1, 0, 0, 0]),
+                q0=q0, obstacles=obstacles, target_negative_volumes=negatives))
+        groups[scene_type] = {problem_type: probs}
+    return groups
+
+
+def check_card_against_cpu(args):
+    """``check_trajectories`` on the card against the same function on the
+    CPU, on the same batch: booleans equal, floats within CHECK_TOL x
+    max(1, |x|), orientation errors within CHECK_ORI_TOL_DEG and the
+    orientation path length within CHECK_ORI_TOL_DEG a live segment (a
+    sum of arccos values near 0, each about 0.02 deg from one f32 ulp of
+    its trace). -> (worst float error over its tolerance, its key)."""
+    import numpy as np
+    import torch
+
+    from mpinets_torch.eval.metrics import check_trajectories, to_host
+
+    traj, num_steps, rot, trans, scene, tv, neg = args
+    cuda = to_host(check_trajectories(traj.cuda(), torch.as_tensor(num_steps).cuda(),
+                                      rot.cuda(), trans.cuda(), scene.to("cuda"),
+                                      tv.to("cuda"), neg.to("cuda")))
+    cpu = to_host(check_trajectories(traj.cpu(), torch.as_tensor(num_steps), rot.cpu(),
+                                     trans.cpu(), scene.to("cpu"), tv.to("cpu"),
+                                     neg.to("cpu")))
+    worst = (0.0, None)
+    segments = np.maximum(np.asarray(num_steps), 1)
+    for key, ref in cpu.items():
+        if ref.dtype == bool:
+            if not np.array_equal(cuda[key], ref):
+                raise AssertionError(f"check_trajectories {key}: card and CPU differ at "
+                                     f"{int((cuda[key] != ref).sum())} entries")
+            continue
+        err = np.abs(cuda[key] - ref)
+        tol = (CHECK_ORI_TOL_DEG if key == "orientation_error"
+               else CHECK_ORI_TOL_DEG * segments if key == "eff_orientation_path_length"
+               else CHECK_TOL * np.maximum(1.0, np.abs(ref)))
+        worst = max(worst, (float((err / tol).max()), key))
+        if not (err <= tol).all():
+            raise AssertionError(f"check_trajectories {key}: card vs CPU error {err.max()}")
+    return worst
+
+
+def run_evaluation(model, smi, count_path):
+    """The evaluation path a user runs (``python -m mpinets_torch.cli.infer``)
+    at full widths, from a problem-set pickle and a ``.npz`` of the random
+    policy, in each mode of EVAL_RUNS, with its gates. -> per-run summary."""
+    import pickle
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from mpinets_torch.cli import infer
+    from mpinets_torch.data import problems as P
+    from mpinets_torch.eval import metrics
+    from mpinets_torch.geom import depth
+    from mpinets_torch.kernels import ops
+    from mpinets_torch.kernels.sdf import scene_sdf
+    from mpinets_torch.model import checkpoint as ckpt
+    from mpinets_torch.model.fused import make_fused_apply
+    from mpinets_torch.rollout.engine import make_rollout_fn
+
+    summary = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+        tmp = Path(tmp)
+        pset = eval_problem_set(np.random.default_rng(SEED + 7))
+        P.save_problems(tmp / "problems.pkl", pset)
+        loaded = P.load_problems(tmp / "problems.pkl")
+        for scene_type, by_type in pset.items():
+            for problem_type, probs in by_type.items():
+                back = loaded[scene_type][problem_type]
+                if len(back) != len(probs) or any(
+                        not np.array_equal(a.q0, b.q0) or len(a.obstacles) != len(b.obstacles)
+                        for a, b in zip(back, probs)):
+                    raise AssertionError("the problem set did not read back as written")
+        ckpt.save_flax_npz(tmp / "policy.npz", ckpt.flax_from_params(model.state_dict()))
+        for label, flags, kernels, per_group in EVAL_RUNS:
+            out_dir = tmp / f"metrics_{len(summary)}"
+            batches, sensed, eval_s = [], [], [0.0]
+            real_eval, real_cloud = metrics.Evaluator.evaluate_batch, depth.scene_to_point_cloud
+
+            def spy_eval(self, *args, **kw):
+                batches.append(args[:7])
+                t_eval = time.perf_counter()
+                real_eval(self, *args, **kw)    # ends with the checks' copy to the host
+                eval_s[0] += time.perf_counter() - t_eval
+
+            def spy_cloud(scene, *args, **kw):
+                sensed.append((scene, real_cloud(scene, *args, **kw)))
+                return sensed[-1][1]
+
+            printed = io.StringIO()
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with mock.patch.object(metrics.Evaluator, "evaluate_batch", spy_eval), \
+                    mock.patch.object(depth, "scene_to_point_cloud", spy_cloud), \
+                    contextlib.redirect_stdout(printed):
+                ev = infer.main([str(tmp / "policy.npz"), str(tmp / "problems.pkl"), "all",
+                                 "all", "--save-metrics", str(out_dir), *flags])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            count_path(f"evaluation {label}", kernels)
+            # --- gates -----------------------------------------------------
+            if set(ev.groups) != {"tabletop_task-oriented", "cubby_neutral-start"}:
+                raise AssertionError(f"evaluation {label}: groups {sorted(ev.groups)}")
+            with open(out_dir / "mpinets_torch_eval_metrics.pkl", "rb") as f:
+                saved = pickle.load(f)
+            if saved.keys() != ev.groups.keys():
+                raise AssertionError(f"evaluation {label}: the saved pickle's groups differ")
+            rows = {}
+            for key, group in saved.items():
+                m = ev.metrics(group)
+                if set(m) != METRIC_KEYS or m["total"] != per_group:
+                    raise AssertionError(f"evaluation {label} {key}: keys {sorted(m)}, total "
+                                         f"{m['total']} (expected {per_group})")
+                fresh = ev.metrics(ev.groups[key])
+                if not all(np.allclose(np.asarray(m[k], float), np.asarray(fresh[k], float),
+                                       equal_nan=True) for k in m):
+                    raise AssertionError(f"evaluation {label} {key}: the pickle's metrics differ")
+                rows[key] = {k: float(m[k]) for k in ("success", "env collision", "1 cm",
+                                                      "average config sparc")}
+            worst, worst_key = check_card_against_cpu(batches[0])
+            extra = ""
+            if "--use-depth" in flags:
+                if len(sensed) != 2:
+                    raise AssertionError(f"evaluation {label}: {len(sensed)} depth renders")
+                far = max(float(scene_sdf(cloud, scene).abs().max()) for scene, cloud in sensed)
+                if not far <= DEPTH_SURFACE_TOL:
+                    raise AssertionError(f"evaluation {label}: a sensed point lies {far} m "
+                                         "from every surface")
+                extra = f"; sensed points at most {far:.2e} m from a surface"
+            notes = [line for line in printed.getvalue().splitlines()
+                     if line.startswith(("# rollout path", "# batch-1"))]
+            n = sum(m_["total"] for m_ in map(ev.metrics, ev.groups.values()))
+            summary[label] = {"seconds": seconds, "problems": n, "problems_per_s": n / seconds,
+                              "evaluator_seconds": eval_s[0], "groups": rows}
+            log(f"evaluation {label}: {n} problems in {seconds:.2f} s ({n / seconds:.2f} "
+                f"problems/s, 150 steps each unless solved; the Evaluator's checks and SPARC "
+                f"{eval_s[0]:.2f} s of it); {'; '.join(notes)}; by group "
+                f"{rows}; check_trajectories card vs CPU: booleans equal, worst float error "
+                f"{worst:.3f} of its tolerance ({worst_key}){extra} [{smi}]")
+
+        phase(f"profile: one 5-step evaluation rollout, B={EVAL_GROUP}, exact, bf16 "
+              "(torch.profiler)")
+        batch = P.problems_to_batch(pset["tabletop"]["task-oriented"], device="cuda")
+        rollout = make_rollout_fn(model, max_steps=5, device="cuda",
+                                  apply_fn=make_fused_apply(torch.bfloat16))
+        profile_rollout(rollout, batch["problem"], torch.Generator("cuda").manual_seed(SEED))
+    return summary
 
 
 def main() -> int:
@@ -862,17 +1080,19 @@ def main() -> int:
     # ---- 2. full-width forward: kernel path against the plain paths -------
     phase(f"full-width forward, B={B}")
 
-    def plain_path(cdt, fast):
+    def plain_path(cdt, fast, bf16_cloud=False):
         w0, w1 = sa_w[cdt]
 
         def fwd(p, q):
             x, f = p[..., :3].contiguous(), p[..., 3:].contiguous()
+            if bf16_cloud:
+                x = x.to(bf16)
             _, c0 = ops.fps_plain(x, 512)
             chunks = ops.chunk_window(x, c0, fast) if fast else None
-            f0_, _ = ops.sa_plain(x, f, c0, w0, stage_radii[0], chunks)
+            f0_, _ = ops.sa_plain(x.float(), f, c0.float(), w0, stage_radii[0], chunks)
             _, c1 = ops.fps_plain(c0, 128)
-            f1_, _ = ops.sa_plain(c0, f0_, c1, w1, stage_radii[1])
-            return fused.tail(model, c1, f1_, q, cdt)
+            f1_, _ = ops.sa_plain(c0.float(), f0_, c1.float(), w1, stage_radii[1])
+            return fused.tail(model, c1.float(), f1_, q, cdt)
         with torch.no_grad():
             return by_rows(fwd, pc, q_norm)
 
@@ -887,18 +1107,19 @@ def main() -> int:
         f"max |dq| {oracle.abs().max().item():.3f}")
     if not err <= FWD_F32_TOL:
         raise AssertionError(f"f32 forward error {err} > {FWD_F32_TOL}")
-    for fast in (0, FAST_W):
+    for fast, bf16_cloud in ((0, False), (FAST_W, False), (0, True)):
         kern = fused.fused_policy_apply(model, pc, q_norm, compute_dtype=bf16,
-                                        fast_grouping=fast)
-        ref = plain_path(bf16, fast)
+                                        fast_grouping=fast, bf16_cloud=bf16_cloud)
+        ref = plain_path(bf16, fast, bf16_cloud)
         if not torch.isfinite(kern).all() or kern.shape != (B, 7):
             raise AssertionError(f"bf16 forward: bad output shape/values {kern.shape}")
         err = (kern - ref).abs().max().item()
         scale = ref.abs().max().item()
-        log(f"bf16 kernel path vs plain path, fast_grouping={fast}: max |dq err| {err:.3e}, "
-            f"max |dq| {scale:.3f}")
+        log(f"bf16 kernel path vs plain path, fast_grouping={fast}, bf16_cloud={bf16_cloud}: "
+            f"max |dq err| {err:.3e}, max |dq| {scale:.3f}")
         if not err <= FWD_BF16_TOL * max(scale, 1e-3):
-            raise AssertionError(f"bf16 forward (W={fast}) error {err} > tol")
+            raise AssertionError(f"bf16 forward (W={fast}, bf16_cloud={bf16_cloud}) error "
+                                 f"{err} > tol")
     kern_v3 = fused.fused_policy_apply(model, pc, q_norm, compute_dtype=bf16, sa_impl="v3")
     kern_v8 = fused.fused_policy_apply(model, pc, q_norm, compute_dtype=bf16)
     if not torch.equal(kern_v3, kern_v8):
@@ -1139,6 +1360,11 @@ def main() -> int:
         count_path("trainer, small cloud", ("fps", "sa_select", "sa_raw", "sa"))
         if small.step != 10 or not all(torch.isfinite(p).all() for p in small.model.parameters()):
             raise AssertionError(f"trainer, small cloud: step {small.step} or non-finite weights")
+    # ---- 4b. the evaluation path: cli.infer --------------------------------
+    phase("evaluation: cli.infer on the card, full widths (bf16 exact, --fp32, fast, depth, "
+          "batch-1 timing)")
+    eval_summary = run_evaluation(model, smi, count_path)
+
     # ---- 5. the TPU probe session ----------------------------------------
     from mpinets_torch.probes import session as probe_session
 
@@ -1163,11 +1389,11 @@ def main() -> int:
         f"{sa0_exact['ms']:.4f} ms [{smi}]; the phase took {time.perf_counter() - t0:.1f} s")
 
     # ---- 6. each kernel at each shape the main paths launched it at --------
-    phase("kernels at the main paths' shapes: vs plain, times and bounds, bf16")
+    phase("kernels at the main paths' shapes: vs plain, times and bounds (bf16; _f32: f32)")
     by_shape = dict(main_launches)
     log(f"main-path launches by (kernel, B, N, S): {by_shape}")
     inputs = {}
-    kernels = [time_at_shape(key, launches, inputs, xyz, feat, sa_w[bf16], stage_radii, smi)
+    kernels = [time_at_shape(key, launches, inputs, xyz, feat, sa_w, stage_radii, smi)
                for key, launches in sorted(by_shape.items())]
     rank = Counter()
     for r in kernels:
@@ -1189,7 +1415,8 @@ def main() -> int:
         })
     log(json.dumps({"env_steps_per_s_median": rate, "env_steps_per_s": rates, "batch": B,
                     "fast_grouping": FAST_W, "compute_dtype": "bfloat16",
-                    "train": {str(k): v for k, v in train_rates.items()}, "card": smi}))
+                    "train": {str(k): v for k, v in train_rates.items()},
+                    "evaluation": eval_summary, "card": smi}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -24,11 +24,15 @@ as the JAX server answers it.
 
 Usage::
 
-    python -m mpinets_torch.cli.serve (--weights WEIGHTS.npz | --random-init SEED)
+    python -m mpinets_torch.cli.serve
+        (--weights WEIGHTS.npz | --checkpoint PATH | --random-init SEED)
         SCAN.npy [--max-steps 75] [--device cuda]
 
 ``WEIGHTS.npz`` holds flax-layout weights
-(:func:`mpinets_torch.model.checkpoint.save_flax_npz`).
+(:func:`mpinets_torch.model.checkpoint.save_flax_npz`); ``--checkpoint``
+takes what :func:`mpinets_torch.cli.infer.load_params` reads (a Lightning
+``.ckpt``, a ``.npz`` or a trainer directory), as the JAX server loads
+through its ``cli.infer.load_params``.
 """
 
 from __future__ import annotations
@@ -42,8 +46,8 @@ import numpy as np
 import torch
 
 from mpinets_torch import types as T
+from mpinets_torch.cli.infer import load_params
 from mpinets_torch.data.problems import problems_to_batch
-from mpinets_torch.model import checkpoint
 from mpinets_torch.model.policy import MotionPolicyNetwork
 from mpinets_torch.rollout.engine import make_rollout_fn
 from mpinets_torch.utils.device import resolve_device
@@ -147,12 +151,14 @@ def serve(planner: Planner, infile=sys.stdin, outfile=sys.stdout) -> None:
 
 def load_model(weights: Optional[str], random_init: Optional[int], device=None,
                compute_dtype=torch.bfloat16) -> MotionPolicyNetwork:
-    """The policy from a flax-layout ``.npz``, or random weights from a seed."""
+    """The policy from ``weights`` -- a flax-layout ``.npz``, or anything
+    :func:`mpinets_torch.cli.infer.load_params` reads -- or random weights
+    from a seed."""
     generator = None if random_init is None else torch.Generator().manual_seed(random_init)
     model = MotionPolicyNetwork(compute_dtype=compute_dtype, device="cpu",
                                 generator=generator)
     if weights is not None:
-        model.load_state_dict(checkpoint.params_from_flax(checkpoint.load_flax_npz(weights)))
+        model.load_state_dict(load_params(weights))
     return model.to(resolve_device(device))
 
 
@@ -161,6 +167,8 @@ def main(argv=None) -> None:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     src = ap.add_mutually_exclusive_group(required=True)
     src.add_argument("--weights", help="flax-layout weights .npz")
+    src.add_argument("--checkpoint", metavar="PATH",
+                     help="a Lightning .ckpt, a .npz or a trainer checkpoint directory")
     src.add_argument("--random-init", type=int, metavar="SEED",
                      help="random weights made from SEED")
     ap.add_argument("scan", help=".npy point cloud [N, 3] (or [N, >=3])")
@@ -168,7 +176,7 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None, help="default cuda; cpu runs the plain path")
     args = ap.parse_args(argv)
 
-    model = load_model(args.weights, args.random_init, args.device)
+    model = load_model(args.weights or args.checkpoint, args.random_init, args.device)
     scan = np.load(args.scan)[:, :3]
     planner = Planner(model, scan, max_steps=args.max_steps, device=args.device)
     print("ready", file=sys.stderr, flush=True)

@@ -30,7 +30,9 @@ launches the kernel or raises; it never falls back. Each launch adds one to
 :data:`LAUNCHES` and to :data:`LAUNCHES_BY_SHAPE`, under the name of the
 kernel: ``fps``; ``sa_select`` (the exact ball query); the SA MLP kernel by
 variant, ``sa`` (exact, in-cloud), ``sa_raw`` (exact, with the raw block),
-``sa_v3`` (exact, off-cloud) or ``sa_fast`` (its own window scan). An exact
+``sa_v3`` (exact, off-cloud) or ``sa_fast`` (its own window scan), each
+with ``_f32`` appended under f32 weights (the CUDA-core kernel; bf16 runs
+the tensor-core one). An exact
 SA stage counts one ``sa_select`` and one MLP launch; an FPS launch also
 counts under its plan in :data:`FPS_LAUNCHES_BY_PLAN`. The TPU probe kernels
 (``csrc/probes.cu``, wrapped in :mod:`mpinets_torch.probes`) count as
@@ -81,7 +83,8 @@ SA_CENTROIDS_PER_BLOCK = (8, 16, 32)
 
 #: Kernel launches since the last :func:`reset_launches`, by wrapper.
 LAUNCHES: Dict[str, int] = {"fps": 0, "sa_select": 0, "sa": 0, "sa_raw": 0, "sa_v3": 0,
-                            "sa_fast": 0, "probe_scan": 0, "probe_micro": 0, "probe_wide": 0,
+                            "sa_fast": 0, "sa_f32": 0, "sa_raw_f32": 0, "sa_v3_f32": 0,
+                            "sa_fast_f32": 0, "probe_scan": 0, "probe_micro": 0, "probe_wide": 0,
                             "probe_scratch": 0}
 #: The same launches by (kernel, B, N, S): batch, cloud size, and samples or
 #: centroids.
@@ -112,6 +115,13 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
     LAUNCHES_BY_SHAPE.clear()
     FPS_LAUNCHES_BY_PLAN.clear()
+
+
+def mlp_launch_name(variant: str, compute_dtype) -> str:
+    """The counter of an SA MLP launch: ``variant`` (sa, sa_raw, sa_v3,
+    sa_fast) under bf16 weights (the tensor-core kernel), with ``_f32``
+    appended under f32 weights (the CUDA-core kernel)."""
+    return variant if compute_dtype == torch.bfloat16 else variant + "_f32"
 
 
 def _count(name: str, b: int, n: int, s: int) -> None:
@@ -372,17 +382,19 @@ def chunk_window(xyz: torch.Tensor, centroids: torch.Tensor, window: int) -> tor
     """The fast kernel's window: per centroid, the ``window`` chunks of 128
     points (clamped to the chunk count) whose mean is nearest, nearest first,
     the lower chunk winning ties -- ``top_k`` over chunk means as in
-    ``pallas_ops.py:1249-1259``. Means leave out the pad points of a partial
-    last chunk. -> int32 [B, S, W]."""
+    ``pallas_ops.py:1249-1259``, computed in xyz's dtype as there (bf16
+    under ``bf16_cloud``). Means leave out the pad points of a partial last
+    chunk. -> int32 [B, S, W]."""
     b, n, _ = xyz.shape
+    dt = xyz.dtype
     nc = -(-n // CHUNK)
     pad = nc * CHUNK - n
-    xp = torch.nn.functional.pad(xyz.float(), (0, 0, 0, pad))
+    xp = torch.nn.functional.pad(xyz, (0, 0, 0, pad))
     wsum = xp.reshape(b, nc, CHUNK, 3).sum(dim=2)
-    real = (torch.arange(nc * CHUNK, device=xyz.device) < n).float()
+    real = (torch.arange(nc * CHUNK, device=xyz.device) < n).to(dt)
     wcnt = torch.clamp(real.reshape(nc, CHUNK).sum(dim=1), min=1.0)
     means = wsum / wcnt[None, :, None]
-    d2 = ((centroids.float()[:, :, None, :] - means[:, None, :, :]) ** 2).sum(dim=-1)
+    d2 = ((centroids.to(dt)[:, :, None, :] - means[:, None, :, :]) ** 2).sum(dim=-1)
     order = torch.sort(d2, dim=-1, stable=True).indices
     return order[..., : min(window, nc)].to(torch.int32).contiguous()
 
@@ -664,7 +676,7 @@ def sa_kernel(xyz, features, centroids, weights: SAWeights, radius: float,
         if selection is None:
             _count("sa_select", b, n, s)
         name = "sa_raw" if return_raw else "sa" if in_cloud else "sa_v3"
-    _count(name, b, n, s)
+    _count(mlp_launch_name(name, w.compute_dtype), b, n, s)
     return (out, idx, raw) if return_raw else (out, idx)
 
 
@@ -751,12 +763,14 @@ def sa_stage_fast(xyz, features, centroids, weights: SAWeights, radius: float,
     ``window`` nearest chunks of 128 points (:func:`chunk_window`) and keeps
     up to 128 in-ball points in (window rank, lane) order; the rest of the
     stage is :func:`sa_stage`'s. With no in-ball point, slot 0 is a zero raw
-    row and idx is all 0.
+    row and idx is all 0. Coordinates may be bf16 (``bf16_cloud``): the
+    window is chosen in their dtype, the stage reads them as f32.
     """
     if nsample != NSAMPLE:
         raise ValueError(f"the SA kernel keeps {NSAMPLE} neighbours, got nsample={nsample}")
     cpu = _on_cpu(xyz, features, centroids, *weights.tensors)
     chunks = chunk_window(xyz, centroids, window)
+    xyz, centroids = xyz.float(), centroids.float()
     if cpu:
         return sa_plain(xyz, features, centroids, weights, radius, chunks)
     return sa_kernel(xyz, features, centroids, weights, radius, chunks)

@@ -14,6 +14,24 @@ Arrays are converted to float32 (the committed checkpoint is bf16; the
 upcast is exact). ``.npz`` files carry the flax tree flattened with "/"
 keys, the format ``cli.serve`` reads.
 
+The reference's published PyTorch-Lightning checkpoint
+(``mpinets_hybrid_expert.ckpt``, its ``MotionPolicyNetwork`` of
+``mpinets/model.py:35-91,355-426``) arrives through
+:func:`convert_torch_state_dict` (the JAX package's importer,
+``checkpoint.py:36-133``), which maps its ``state_dict`` onto the same
+flax-layout numpy tree, so :func:`params_from_flax` loads it:
+
+* ``nn.Linear`` ``weight [out, in]`` -> ``kernel [in, out]``;
+* pointnet2_ops ``SharedMLP`` 1x1 ``Conv2d`` ``weight [out, in, 1, 1]`` ->
+  ``kernel [in, out]`` (the conv is pointwise, so it is a dense layer);
+* ``nn.GroupNorm`` ``weight`` / ``bias`` -> ``scale`` / ``bias``.
+
+Its keys: ``point_cloud_encoder.SA_modules.{0,1,2}.mlps.0.layer{j}.conv.
+weight|bias`` (spellings vary across pointnet2_ops versions, so the convs
+are matched per SA module by regex and sorted by layer index),
+``point_cloud_encoder.fc_layer.{0,3,6}`` (Linear) and ``.{1,4}``
+(GroupNorm), ``feature_encoder.{0,2,4,6,8}``, ``decoder.{0,2,4,6}``.
+
 Train checkpoints keep the JAX package's directory layout
 (``checkpoint.py:136-196``): ``step_%08d/`` every wall-clock interval,
 ``last/`` and ``best/`` with a ``<name>.step`` marker beside them, each
@@ -24,6 +42,7 @@ parameters, the optimizer state, the step and the EMA parameters.
 
 from __future__ import annotations
 
+import re
 import shutil
 from pathlib import Path
 from typing import Any, Dict, Mapping, Optional
@@ -91,6 +110,81 @@ def load_flax_npz(path) -> Dict[str, Any]:
                 node = node.setdefault(name, {})
             node[leaf] = data[key]
     return {"params": params}
+
+
+# ---------------------------------------------------------------------------
+# The reference's PyTorch-Lightning checkpoints
+# ---------------------------------------------------------------------------
+
+def _strip_prefix(state_dict: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """Drop Lightning wrappers: keep keys from the first occurrence of a
+    known top-level module name onward; convert tensors to numpy."""
+    tops = ("point_cloud_encoder.", "feature_encoder.", "decoder.")
+    out = {}
+    for key, value in state_dict.items():
+        for top in tops:
+            pos = key.find(top)
+            if pos >= 0:
+                out[key[pos:]] = np.asarray(
+                    value.detach().cpu().numpy() if hasattr(value, "detach") else value)
+                break
+    return out
+
+
+def _dense_leaf(weight: np.ndarray, bias: np.ndarray) -> Dict[str, np.ndarray]:
+    w = weight
+    if w.ndim == 4:  # 1x1 conv
+        if w.shape[2:] != (1, 1):
+            raise ValueError(f"a SharedMLP conv must be 1x1, got weight {w.shape}")
+        w = w[:, :, 0, 0]
+    return {"kernel": np.ascontiguousarray(w.T), "bias": bias}
+
+
+def convert_torch_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    """The reference's torch ``state_dict`` -> flax-layout ``{"params": ...}``
+    (numpy leaves), the tree :func:`params_from_flax` loads."""
+    sd = _strip_prefix(state_dict)
+    encoder: Dict[str, Any] = {}
+    for sa_idx in range(3):
+        pattern = re.compile(
+            rf"point_cloud_encoder\.SA_modules\.{sa_idx}\."
+            r"(?:mlps?\.0\.)?(?:layer)?(\d+)\.?(?:conv\.)?weight$"
+        )
+        convs = sorted((int(m.group(1)), key) for key in sd for m in [pattern.match(key)] if m)
+        if len(convs) != 3:
+            raise ValueError(
+                f"SA module {sa_idx}: expected 3 conv layers, matched {convs}; "
+                f"keys: {[k for k in sd if f'SA_modules.{sa_idx}' in k]}")
+        encoder[f"sa{sa_idx}"] = {"mlp": {
+            f"conv{out_idx}": _dense_leaf(sd[wkey], sd[wkey[: -len("weight")] + "bias"])
+            for out_idx, (_, wkey) in enumerate(convs)
+        }}
+
+    # FC head: Linear at 0/3/6, GroupNorm at 1/4
+    fc = "point_cloud_encoder.fc_layer"
+    for name, idx in (("fc0", 0), ("fc1", 3), ("fc2", 6)):
+        encoder[name] = _dense_leaf(sd[f"{fc}.{idx}.weight"], sd[f"{fc}.{idx}.bias"])
+    for name, idx in (("gn0", 1), ("gn1", 4)):
+        encoder[name] = {"scale": sd[f"{fc}.{idx}.weight"], "bias": sd[f"{fc}.{idx}.bias"]}
+    params: Dict[str, Any] = {"point_cloud_encoder": encoder}
+
+    # q encoder (Sequential indices 0, 2, 4, 6, 8), decoder (0, 2, 4, 6)
+    for prefix, torch_name, indices in (("feature_encoder", "feature_encoder", (0, 2, 4, 6, 8)),
+                                        ("decoder", "decoder", (0, 2, 4, 6))):
+        for out_idx, torch_idx in enumerate(indices):
+            params[f"{prefix}_{out_idx}"] = _dense_leaf(
+                sd[f"{torch_name}.{torch_idx}.weight"], sd[f"{torch_name}.{torch_idx}.bias"])
+    return {"params": params}
+
+
+def load_torch_checkpoint(path) -> Dict[str, Any]:
+    """Read a Lightning ``.ckpt`` (or a bare state-dict ``.pt``) on the CPU
+    and convert it (:func:`convert_torch_state_dict`). The file is a full
+    pickle (``weights_only=False``), as Lightning writes it: load only
+    checkpoints you trust."""
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    state_dict = blob.get("state_dict", blob) if isinstance(blob, dict) else blob
+    return convert_torch_state_dict(state_dict)
 
 
 # ---------------------------------------------------------------------------

@@ -113,15 +113,17 @@ def fused_policy_apply(
     centroids off the cloud (point 0's row), "v5" and "v8" with that of
     cloud members, as ``mpinets_tpu/model/fused.py:119-139`` does; FPS
     centroids are cloud members, so all three give the same value.
-    ``bf16_cloud`` is not ported yet.
+    ``bf16_cloud`` rounds the coordinates to bf16 for FPS (which then picks
+    and returns bf16 coordinates) and for the fast SA0's window choice, as
+    ``mpinets_tpu/model/fused.py:100-103`` does; the SA stages and the tail
+    read those rounded coordinates as f32, as the TPU kernels' f32 planes
+    and centroid tables do (``pallas_ops.py:1263,1409,1444``).
     """
-    if bf16_cloud:
-        raise NotImplementedError(
-            "bf16_cloud: bf16 coordinates through the SA kernels are not ported "
-            "(ROADMAP.md queue B item 1)")
     cdt = compute_dtype
     w0, w1 = sa_weights(model, cdt) if weights is None else weights
     xyz = point_cloud[..., :3].contiguous()
+    if bf16_cloud:
+        xyz = xyz.to(torch.bfloat16)
     feat = point_cloud[..., 3:].contiguous()
 
     exact = dict(impl=sa_impl, centroids_in_cloud=sa_impl in ("v5", "v8"))
@@ -131,11 +133,11 @@ def fused_policy_apply(
     if fast_grouping:
         f0, _ = ops.sa_stage_fast(xyz, feat, cent0, w0, **sa0, window=fast_grouping)
     else:
-        f0, _ = ops.sa_stage(xyz, feat, cent0, w0, **sa0, **exact)
+        f0, _ = ops.sa_stage(xyz.float(), feat, cent0.float(), w0, **sa0, **exact)
 
     _, cent1 = ops.furthest_point_sample_with_coords(cent0, sa_npoints[1])
-    f1, _ = ops.sa_stage(cent0, f0, cent1, w1, **sa1, **exact)
-    return tail(model, cent1, f1, q_norm, cdt)
+    f1, _ = ops.sa_stage(cent0.float(), f0, cent1.float(), w1, **sa1, **exact)
+    return tail(model, cent1.float(), f1, q_norm, cdt)
 
 
 def make_fused_apply(compute_dtype=torch.bfloat16, sa_npoints: tuple = (512, 128),

@@ -127,7 +127,7 @@ def test_sa_kernel_matches_plain(cuda, fast, dtype):
     args = _sa_inputs(11)
     fn = ops.sa_stage_fast if fast else ops.sa_stage
     kw = dict(radius=0.2, **({"window": 3} if fast else {}))
-    counter = "sa_fast" if fast else "sa"
+    counter = ops.mlp_launch_name("sa_fast" if fast else "sa", dtype)
     before = ops.LAUNCHES[counter]
     before_shape = ops.LAUNCHES_BY_SHAPE[(counter, 3, 700, 37)]
     if not fast:
@@ -163,13 +163,15 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_sa_kernel_raw_block_matches_plain(cuda, dtype):
-    """The raw block: bit-equal to the plain version's; launches count as sa_raw."""
+    """The raw block: bit-equal to the plain version's; launches count as
+    sa_raw (sa_raw_f32 under f32)."""
     args = _sa_inputs(13)
     kw = dict(radius=0.2, impl="v8", centroids_in_cloud=True, return_raw=True)
-    before = ops.LAUNCHES["sa_raw"]
+    counter = ops.mlp_launch_name("sa_raw", dtype)
+    before = ops.LAUNCHES[counter]
     feats, idx, raw = ops.sa_stage(*_stage_args(args, cuda, dtype), **kw)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["sa_raw"] == before + 1
+    assert ops.LAUNCHES[counter] == before + 1
     ref, ref_idx, ref_raw = ops.sa_stage(*_stage_args(args, "cpu", dtype), **kw)
     np.testing.assert_array_equal(idx.cpu().numpy(), ref_idx.numpy())
     assert torch.equal(raw.cpu(), ref_raw)
@@ -189,10 +191,11 @@ def test_sa_kernel_off_cloud_matches_plain(cuda, impl, dtype):
     args = _sa_inputs(14)
     args[2][:, 2:9] += 0.011
     kw = dict(radius=0.2, impl=impl, centroids_in_cloud=False)
-    before = ops.LAUNCHES["sa_v3"]
+    counter = ops.mlp_launch_name("sa_v3", dtype)
+    before = ops.LAUNCHES[counter]
     feats, idx = ops.sa_stage(*_stage_args(args, cuda, dtype), **kw)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["sa_v3"] == before + 1
+    assert ops.LAUNCHES[counter] == before + 1
     ref, ref_idx = ops.sa_stage(*_stage_args(args, "cpu", dtype), **kw)
     np.testing.assert_array_equal(idx.cpu().numpy(), ref_idx.numpy())
     tol = 1e-5 if dtype == torch.float32 else 1e-2
@@ -542,14 +545,15 @@ def test_sa_mlp_kernel_reads_a_given_selection(cuda, dtype):
     out, out_idx = ops.sa_kernel(*_stage_args(args, cuda, dtype), 0.2,
                                  selection=(idx.to(cuda), count.to(cuda)))
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["sa"] == before["sa"] + 1 and ops.LAUNCHES["sa_select"] == before["sa_select"]
+    sa = ops.mlp_launch_name("sa", dtype)
+    assert ops.LAUNCHES[sa] == before[sa] + 1 and ops.LAUNCHES["sa_select"] == before["sa_select"]
     assert torch.equal(out_idx.cpu(), idx)
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     scale = max(1.0, ref.abs().max().item())
     assert (out.cpu() - ref).abs().max().item() <= tol * scale
     ops.sa_stage(*_stage_args(args, cuda, dtype), 0.2, impl="v8", centroids_in_cloud=True)
     assert ops.LAUNCHES["sa_select"] == before["sa_select"] + 1
-    assert ops.LAUNCHES["sa"] == before["sa"] + 2
+    assert ops.LAUNCHES[sa] == before[sa] + 2
 
 
 @pytest.mark.cuda
@@ -602,7 +606,7 @@ def test_fused_train_kernels_match_plain_gradients(cuda, monkeypatch, sa_impl):
         torch.sin(apply(model, pc, q)).sum().backward()
         return {k: p.grad.clone() for k, p in model.named_parameters()}
 
-    counter = "sa_raw" if sa_impl == "v8" else "sa_v3"
+    counter = ops.mlp_launch_name("sa_raw" if sa_impl == "v8" else "sa_v3", torch.float32)
     before = ops.LAUNCHES[counter]
     kernel = grads()
     torch.cuda.synchronize()
@@ -675,3 +679,70 @@ def test_probe_kernels_at_full_shape(cuda, kernel):
     for probe in probes:
         rec = session.check(probe)
         assert rec["ok"], rec
+
+
+def _trajectory_case(name):
+    """``tests/test_torch_eval.py``'s check_trajectories cases, made with the
+    port's kinematics: (trajectories, num_steps, target rot, target trans,
+    scene, target volumes, negative volumes) on the CPU."""
+    from mpinets_torch.geom.scene import pack_scenes
+    from mpinets_torch.kernels import kinematics
+    from mpinets_torch.robot import franka
+
+    def line(q_end):
+        a = np.linspace(0.0, 1.0, 20)[:, None]
+        return ((1 - a) * q_start + a * q_end).astype(np.float32)
+
+    def volumes(points, dims):
+        return [[(p, (dims,) * 3, (1.0, 0, 0, 0))] for p in points]
+
+    q_start = np.asarray(franka.NEUTRAL_Q)
+    trajs = np.stack([line(q_start + np.array([0.3, 0.1, -0.2, 0.2, 0.1, -0.1, 0.2]))] * 2)
+    num_steps = np.full((2,), 19, np.int32)
+    if name in ("joint_limit", "frozen_tail"):
+        bad = np.tile(q_start.astype(np.float32), (20, 1))
+        bad[(0 if name == "joint_limit" else 10):, 0] = 3.5
+        trajs = np.stack([bad, bad])
+        if name == "frozen_tail":
+            num_steps[:] = 5
+    elif name == "partial_success":
+        trajs = np.stack([line(q_start + 0.2)] * 2)
+        num_steps[1] = 12
+    rot, pos = kinematics.eff_pose(torch.from_numpy(trajs[:, -1]))
+    final = pos.double().numpy()
+    scene, tv, neg = [[], []], volumes(final, 2.0), [[], []]
+    if name == "collision":
+        scene = [[((0.0, 0.0, 0.5), (3.0, 3.0, 3.0), (1.0, 0, 0, 0))]] * 2
+    elif name == "negative_volume":
+        neg = [volumes(final, 2.0)[0], volumes(final, 0.2)[1]]
+        tv[1] = volumes(final + np.array([5.0, 0, 0]), 0.5)[1]
+    pack = lambda c: pack_scenes(c, [[] for _ in c], device="cpu")
+    return (torch.from_numpy(trajs), torch.from_numpy(num_steps), rot, pos,
+            pack(scene), pack(tv), pack(neg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["success", "collision", "negative_volume", "joint_limit",
+                                  "frozen_tail", "partial_success"])
+def test_check_trajectories_on_the_card_matches_the_cpu(cuda, name):
+    """The evaluator's checks on the card equal the CPU's: booleans equal,
+    floats within 1e-4 x max(1, |x|), orientation within 0.05 deg and the
+    orientation path within 0.05 deg a live segment (as ``chip_smoke.py``'s
+    evaluation phase holds them)."""
+    from mpinets_torch.eval.metrics import check_trajectories, to_host
+
+    args = _trajectory_case(name)
+    cpu = to_host(check_trajectories(*args))
+    card = to_host(check_trajectories(*(a.to(cuda) for a in args)))
+    for key, ref in cpu.items():
+        if ref.dtype == bool:
+            np.testing.assert_array_equal(card[key], ref, err_msg=key)
+        elif key == "orientation_error":
+            np.testing.assert_allclose(card[key], ref, atol=0.05, rtol=0, err_msg=key)
+        elif key == "eff_orientation_path_length":   # 0.05 deg a live segment
+            segments = np.maximum(args[1].numpy(), 1)
+            np.testing.assert_array_less(np.abs(card[key] - ref), 0.05 * segments, err_msg=key)
+        else:
+            np.testing.assert_array_less(np.abs(card[key] - ref),
+                                         1e-4 * np.maximum(1.0, np.abs(ref)) + 1e-30,
+                                         err_msg=key)

@@ -259,6 +259,29 @@ def test_chunk_window_matches_top_k():
     np.testing.assert_array_equal(ours, _np(jax.lax.top_k(-jnp.asarray(d2), 3)[1]))
 
 
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunk_window_in_the_coordinates_dtype(dtype):
+    """``bf16_cloud``'s window: the chunk means, distances and top-W in
+    xyz's dtype, as ``pallas_ops.py:1249-1259`` computes them (its lines,
+    run in jnp here on the same bf16 inputs): equal windows on 120 rows of
+    a 1,100-point cloud (9 chunks, the last partial)."""
+    rng = np.random.default_rng(12)
+    xyz = rng.uniform(-0.7, 0.7, (3, 1100, 3)).astype(np.float32)
+    xyz = xyz[:, np.argsort(xyz[0, :, 0])]          # chunks spread along x
+    cent = xyz[:, rng.choice(1100, 40, replace=False)]
+    jx, jc = (jnp.asarray(a).astype(dtype) for a in (xyz, cent))
+    pad_n = (-1100) % 128
+    jx = jnp.pad(jx, ((0, 0), (0, pad_n), (0, 0)), constant_values=1e6)
+    real = (jnp.arange(1100 + pad_n) < 1100).astype(jx.dtype)
+    wsum = jnp.sum((jx * real[None, :, None]).reshape(3, 9, 128, 3), axis=2)
+    means = wsum / jnp.maximum(jnp.sum(real.reshape(9, 128), axis=1), 1.0)[None, :, None]
+    d2 = jnp.sum((jc[:, :, None, :] - means[:, None, :, :]) ** 2, axis=-1)
+    ref = _np(jax.lax.top_k(-d2, 4)[1])
+    tdt = getattr(torch, dtype)
+    ours = ops.chunk_window(_t(xyz).to(tdt), _t(cent).to(tdt), 4).numpy()
+    np.testing.assert_array_equal(ours, ref)
+
 def test_wrappers_reject_bad_input_and_count_only_launches():
     xyz, feat, cent, weights = _sa_inputs(9)
     ops.reset_launches()
@@ -267,6 +290,7 @@ def test_wrappers_reject_bad_input_and_count_only_launches():
     ops.furthest_point_sample_with_coords(_t(xyz), 8)
     ops.sa_select(_t(xyz), _t(cent), 0.3)
     assert ops.LAUNCHES == dict.fromkeys(("fps", "sa_select", "sa", "sa_raw", "sa_v3", "sa_fast",
+                                          "sa_f32", "sa_raw_f32", "sa_v3_f32", "sa_fast_f32",
                                           "probe_scan", "probe_micro", "probe_wide",
                                           "probe_scratch"), 0)
     # (plain versions launch nothing)

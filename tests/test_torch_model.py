@@ -128,16 +128,49 @@ def test_fused_bf16_close_to_f32(flax_and_port):
 
 
 def test_unported_knobs_raise(flax_and_port):
-    """bf16_cloud is not ported; the v3/v5 stages are (same value as v8 on
-    FPS centroids, which are cloud members)."""
+    """Every knob of the JAX fused forward is ported now: the v3/v5 stages
+    (same value as v8 on FPS centroids, which are cloud members) and
+    ``bf16_cloud``, which no longer raises (its parity:
+    ``test_bf16_cloud_matches_pallas_interpret``)."""
     _, _, model = flax_and_port
     pc, q = (torch.from_numpy(a) for a in _inputs(5))
     v8 = fused_policy_apply(model, pc, q, compute_dtype=torch.float32, sa_npoints=NPOINTS)
     for sa_impl in ("v3", "v5"):
         assert torch.equal(fused_policy_apply(model, pc, q, compute_dtype=torch.float32,
                                               sa_npoints=NPOINTS, sa_impl=sa_impl), v8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_policy_apply(model, pc, q, sa_npoints=NPOINTS, bf16_cloud=True)
+    out = fused_policy_apply(model, pc, q, sa_npoints=NPOINTS, bf16_cloud=True)
+    assert out.shape == (2, 7) and torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("fast", [0, 4], ids=["exact", "fast4"])
+def test_bf16_cloud_matches_pallas_interpret(flax_and_port, fast):
+    """``bf16_cloud=True`` against ``make_fused_apply(bf16_cloud=True,
+    interpret=True)``, bf16: FPS on the bf16-rounded cloud picks the same
+    indices as the Pallas kernel (interpret mode), and dq agrees within the
+    bf16 forward tolerance, 2e-2 x max|dq|."""
+    from mpinets_torch.kernels import ops
+    from mpinets_tpu.kernels import pallas_ops
+    from mpinets_tpu.model.fused import make_fused_apply as jax_fused
+
+    jmodel, variables, model = flax_and_port
+    pc, q = _inputs(6, n=300)
+    ref = np.asarray(jax_fused(jnp.bfloat16, interpret=True, sa_npoints=NPOINTS,
+                               bf16_cloud=True, fast_grouping=fast)(
+        variables, jnp.asarray(pc), jnp.asarray(q)))
+    ours = fused_policy_apply(model, torch.from_numpy(pc), torch.from_numpy(q),
+                              compute_dtype=torch.bfloat16, sa_npoints=NPOINTS,
+                              bf16_cloud=True, fast_grouping=fast).numpy()
+    np.testing.assert_allclose(ours, ref, atol=2e-2 * np.abs(ref).max(), rtol=0)
+    if fast:
+        return
+    xyz = pc[..., :3]
+    jidx, jc = pallas_ops.furthest_point_sample_with_coords(
+        jnp.asarray(xyz).astype(jnp.bfloat16), NPOINTS[0], interpret=True)
+    idx, c = ops.furthest_point_sample_with_coords(
+        torch.from_numpy(xyz).to(torch.bfloat16), NPOINTS[0])
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    assert c.dtype == torch.bfloat16
+    np.testing.assert_array_equal(c.float().numpy(), np.asarray(jc.astype(jnp.float32)))
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu():

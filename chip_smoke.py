@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``mpinets_torch/csrc/`` (logging each SA and
-FPS instantiation's registers and spills, and the launch plans, and
+FPS instantiation's registers and spills, failing on a spill, and the
+launch plans, and
 counting the tensor-core ``HMMA`` instructions in the built SASS where the
 toolkit has ``cuobjdump``), holds each kernel against its plain PyTorch
 version at the main path's shapes -- FPS (each plan the main paths use, at
@@ -14,10 +15,12 @@ B=1), the exact SA stage (the ball query, then the MLP kernel reading its
 selection), its raw-block output (train path), its off-cloud branch
 (``sa_impl="v3"``) and the chunk-window SA0, and every SA variant on a
 cloud whose neighbour counts cross the bf16 kernel's 16-row tiles (at SA0
-widths, 49 centroids whose packed tiles hold 1 to 16 centroids), each bf16
-variant bit-equal under 8, 16 and 32 centroids a block, as fits (also the
-exact and fast SA0 at B=256, timed by centroids per block) -- and
-the train path's parameter gradients, kernels against plain versions. It
+widths, 49 centroids whose packed tiles hold 1 to 16 centroids) and, in f32,
+the CUDA-core kernel's 64- and 128-row tiles, each variant bit-equal under
+8, 16 and 32 centroids a block, as fits, in both types (also the exact and
+fast SA0 at B=256 and SA1 at B=32, timed by centroids per block), the bf16
+CUDA-core kernel at layers too wide for the tensor cores' shared memory --
+and the train path's parameter gradients, kernels against plain versions. It
 then checks the
 full-width forward against the plain paths and drives, with random weights
 made from a seed, each path a user calls: the planning server
@@ -36,7 +39,8 @@ scripts' long-minus-short loop, with SA0 exact timed beside the scan stages.
 Then it times every kernel at each (batch, cloud, centroids) shape the main
 paths launched it at, against its plain version there, with its bound from
 that input's data, and prints launches x (ms - bound ms) summed over each
-kernel's shapes.
+kernel's shapes; then the f32 CUDA-core MLP (``sa_f32``) at B=1, 3, 32 and
+256 the same way, beside three cuBLAS f32 products over its packed rows.
 
 Any failed phase raises, so the script exits non-zero. It also exits
 non-zero, printing no result, when there is no CUDA device or when the
@@ -81,6 +85,11 @@ SPREAD = (0, 1, 15, 16, 17, 31, 127, 128, 200)  # neighbours per centroid, acros
 SPREAD_SA0 = (0, 1, 1, 0, 1, 0, 1, 1, 0, 1, 1, 0, 1, 0, 0, 1, 128,
               2, 3, 5, 13, 15, 16, 17, 31, 200, 3, 5, 2, 1, 0, 13, 16,
               17, 31, 15, 16, 0, 1, 2, 3, 5, 13, 1, 1, 128, 0, 200, 3)
+# the CUDA-core kernel's row tiles (64 and 128 rows): counts 0, 1, tile - 1,
+# tile, tile + 1 and 128, packed so that tile edges fall inside and between
+# centroids in blocks of 8, 16 and 32 (tests/test_torch_cuda.py's SPREAD_TILES)
+SPREAD_TILES = (1, 63, 0, 65, 60, 0, 0, 128, 127, 1, 64, 1, 2, 17, 31, 1, 64, 63, 200, 1, 0,
+                13, 62, 64, 1, 2, 127, 128, 33, 65, 5, 129, 3)
 SA_MAIN_BATCHES = (1, 3, 10, 64, 256)   # the batches the main paths run the SA stages at
 F32_TOL = 1e-5            # kernel vs plain, f32: sums in another order
 BF16_TOL = 1e-2           # kernel vs plain, bf16: a 1-ulp flip of a bf16 activation
@@ -253,14 +262,16 @@ def kernel_resources(log_text):
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
         if m:
             t = re.search(r"([a-z][a-z_]*?_kernel(?:_mma)?)"
-                          r"(?:ILb([01])ELb([01])ELb([01])E|ILi(\d+)E)?", m.group(1))
+                          r"(?:I(?:Li(\d+)E)?Lb([01])ELb([01])ELb([01])E|ILi(\d+)E)?",
+                          m.group(1))
             fps = re.search(r"fps_kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])E", m.group(1))
             full = m.group(1)
             name = (f"fps_kernel<{'f32' if fps.group(1) == 'f' else 'bf16'}, {fps.group(2)}, "
                     f"cluster={fps.group(3)}>") if fps else full if t is None else t.group(1) + (
-                f"<raw={t.group(2)}, point0={t.group(3)}, fast={t.group(4)}>"
-                if t.group(2) is not None
-                else f"<{t.group(5)}>" if t.group(5) is not None
+                f"<{f'tr={t.group(2)}, ' if t.group(2) else ''}raw={t.group(3)}, "
+                f"point0={t.group(4)}, fast={t.group(5)}>"
+                if t.group(3) is not None
+                else f"<{t.group(6)}>" if t.group(6) is not None
                 else "<bf16>" if "bfloat16" in full else "<f32>" if "IfE" in full else "")
             out.setdefault(name, {})
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -842,9 +853,12 @@ def main() -> int:
         resources.update(kernel_resources((ops.BUILD_DIR / f"{name}.log").read_text()))
     for kname, res in resources.items():
         log(f"  {kname}: {res}")
-    # every tensor-core MLP, ball-query and FPS instantiation: no spill
-    for kname in (*(f"sa_kernel_mma<raw={r}, point0={p0}, fast={f}>"
-                    for r, p0, f in ((0, 0, 0), (0, 0, 1), (1, 0, 0), (0, 1, 0))),
+    # every SA MLP (tensor-core and CUDA-core), ball-query and FPS
+    # instantiation: no spill
+    variants = ((0, 0, 0), (0, 0, 1), (1, 0, 0), (0, 1, 0))
+    for kname in (*(f"sa_kernel_mma<raw={r}, point0={p0}, fast={f}>" for r, p0, f in variants),
+                  *(f"sa_kernel<tr={tr}, raw={r}, point0={p0}, fast={f}>"
+                    for tr in (4, 8) for r, p0, f in variants),
                   *(f"sa_select_kernel<{cpw}>" for cpw in (1, 2, 4)),
                   *(f"fps_kernel<{t}, {p_}, cluster={int(c)}>" for t in ("f32", "bf16")
                     for c in (False, True) for p_ in ((8,) if c else ops.FPS_POINTS_PER_THREAD))):
@@ -1033,22 +1047,28 @@ def main() -> int:
         log(f"{label}: impl v5 (centroids_in_cloud) equals v8 bit for bit")
         check_sa(f"sa_v3 {label}", args, stage, bf16, in_cloud=False)
 
-    phase("SA kernel, neighbour counts across the 16-row tiles (SA0, SA1 widths); "
-          "bit-equal across centroids per block")
+    phase("SA kernel, neighbour counts across the 16-row tiles (SA0, SA1 widths) and the "
+          "CUDA-core kernel's 64- and 128-row tiles (f32); bit-equal across centroids per block")
     whole = lambda xs, cs: ops.chunk_window(xs, cs, -(-xs.shape[1] // 128))
     variants = (("sa", {}), ("sa_raw", dict(raw=True)), ("sa_v3", dict(in_cloud=False)),
                 ("sa_fast", dict(chunks_fn=whole)))
+    tile_spread = {stage: spread_cloud(sgen, stage_radii[stage], c_in, 4, dev, SPREAD_TILES)
+                   for stage, c_in in ((0, 1), (1, 64))}
     for label, stage, counts in (("SA0", 0, SPREAD_SA0), ("SA1", 1, SPREAD)):
         for dtype in (f32, bf16):
             for kernel, kw in variants:
                 check_sa(f"{kernel} {label} count spread ({len(counts)} centroids)",
                          spread[stage], stage, dtype, timed=False, **kw)
+        for kernel, kw in variants:
+            check_sa(f"{kernel} {label} row-tile spread ({len(SPREAD_TILES)} centroids)",
+                     tile_spread[stage], stage, f32, timed=False, **kw)
 
-    def cpb_equal(label, args, stage, variants, cpbs, timed):
-        """The bf16 MLP kernel under each of cpbs (centroids per block):
-        idx, raw block and features bit-equal to cpb 8's; on the exact path
-        the MLP alone, reading one selection; timed where asked."""
-        w, radius = sa_w[bf16][stage], stage_radii[stage]
+    def cpb_equal(label, args, stage, variants, cpbs, timed, dtype=bf16):
+        """The MLP kernel of ``dtype`` (bf16: tensor cores; f32: CUDA cores)
+        under each of cpbs (centroids per block): idx, raw block and features
+        bit-equal to cpb 8's; on the exact path the MLP alone, reading one
+        selection; timed where asked."""
+        w, radius = sa_w[dtype][stage], stage_radii[stage]
         for kernel, kw in variants:
             chunks = kw["chunks_fn"](args[0], args[2]) if "chunks_fn" in kw else None
             sel = None if chunks is not None else ops.sa_select(args[0], args[2], radius)
@@ -1063,19 +1083,46 @@ def main() -> int:
             torch.cuda.synchronize()
             for cpb, out in outs.items():
                 if not all(map(torch.equal, out, outs[8])):
-                    raise AssertionError(f"{kernel} {label}: cpb {cpb} differs from cpb 8")
+                    raise AssertionError(f"{kernel} {label} {dtype}: cpb {cpb} differs from cpb 8")
             auto = ops.sa_launch_plan(w, args[1].shape[-1], args[0].shape[0], args[2].shape[1],
                                       in_cloud, raw, chunks is not None)["cpb"]
-            log(f"{kernel} {label}: idx{', raw' if raw else ''} and features bit-equal under cpb "
-                f"{list(cpbs)} (the plan's: {auto})"
+            log(f"{kernel} {label} {str(dtype)[6:]}: idx{', raw' if raw else ''} and features "
+                f"bit-equal under cpb {list(cpbs)} (the plan's: {auto})"
                 + (": MLP ms " + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
                    + f" [{smi}]" if timed else ""))
 
-    # SA1's weights and tiles leave no room for 32 centroids a block
+    # SA1's weights and tiles leave no room for 32 centroids a block, on
+    # either kernel
     for label, stage, cpbs in (("SA0", 0, (8, 16, 32)), ("SA1", 1, (8, 16))):
         cpb_equal(f"{label} count spread", spread[stage], stage, variants, cpbs, False)
+        cpb_equal(f"{label} row-tile spread", tile_spread[stage], stage, variants, cpbs, False,
+                  f32)
     cpb_equal(f"SA0 B={B} assembled cloud", sa0_args, 0,
               (("sa", {}), ("sa_fast", dict(chunks_fn=fast_chunks))), (8, 16, 32), True)
+    for dtype in (f32, bf16):
+        cpb_equal("SA1 B=32 assembled cloud", tuple(t[:32] for t in sa1_args), 1, (("sa", {}),),
+                  (8, 16), True, dtype)
+    cpb_equal(f"SA0 B={B} assembled cloud", sa0_args, 0, (("sa", {}),), (8, 16, 32), True, f32)
+
+    phase("bf16 beyond the tensor cores' shared memory (C1 = C2 = 512): the CUDA-core kernel")
+    wgen = torch.Generator(dev).manual_seed(SEED + 8)
+    dims = (67, 512, 512, 64)
+    wide = ops.prepare_sa_weights(*(t for i in range(3) for t in (
+        0.1 * torch.randn(dims[i], dims[i + 1], generator=wgen, device=dev),
+        0.1 * torch.randn(dims[i + 1], generator=wgen, device=dev))), compute_dtype=bf16)
+    plan = ops.sa_launch_plan(wide, 64, 4, len(SPREAD))
+    if plan["mma"]:
+        raise AssertionError(f"C1 = C2 = 512 in bf16 took the tensor-core kernel: {plan}")
+    out = ops.sa_kernel(*spread[1], wide, stage_radii[1])
+    torch.cuda.synchronize()
+    ref = by_rows(lambda x_, f_, c_: ops.sa_plain(x_, f_, c_, wide, stage_radii[1]), *spread[1])
+    err = (out[0] - ref[0]).abs().max().item()
+    scale = max(1.0, ref[0].abs().max().item())
+    if not (torch.equal(out[1], ref[1]) and err <= BF16_TOL * scale):
+        raise AssertionError(f"bf16 CUDA-core kernel: idx equal {torch.equal(out[1], ref[1])}, "
+                             f"feature error {err} > {BF16_TOL * scale}")
+    log(f"bf16 CUDA-core kernel, plan {plan}: idx equal, max |feat err| {err:.3e} "
+        f"(tol {BF16_TOL} x {scale:.2f})")
 
     # ---- 2. full-width forward: kernel path against the plain paths -------
     phase(f"full-width forward, B={B}")
@@ -1400,6 +1447,22 @@ def main() -> int:
         rank[r["name"].split()[0]] += r["launches"] * (r["ms"] - r["bound_ms"])
     log("launches x (ms - bound ms), summed over each kernel's shapes: "
         + "; ".join(f"{k} {v:.1f}" for k, v in rank.most_common()) + f" [{smi}]")
+
+    phase("sa_f32 (the CUDA-core MLP) at B=1, 3, 32 and 256: vs plain, bound, and three cuBLAS "
+          "f32 products over the same packed rows (TF32 off)")
+    for b_ in (1, 3, 32, B):
+        for stage, (n_, s_) in enumerate(((6272, 512), (512, 128))):
+            key = ("sa_f32", b_, n_, s_)
+            time_at_shape(key, main_launches.get(key, 0), inputs, xyz, feat, sa_w, stage_radii, smi)
+            _, fs, _, sel = stage_inputs(inputs, b_, CLOUDS[0], xyz, feat, sa_w[bf16],
+                                         stage_radii)[stage]
+            w = sa_w[f32][stage]
+            packed = int(sel[1].clamp(min=1).sum())
+            x = torch.rand(packed, 3 + fs.shape[-1], device=dev)
+            mats = (w.w1[: 3 + fs.shape[-1]], w.w2, w.w3)
+            cublas = cuda_ms(lambda: x @ mats[0] @ mats[1] @ mats[2], 5)
+            log(f"  cuBLAS, three f32 products over the {packed} packed rows of sa_f32 B={b_} "
+                f"N={n_} S={s_}: {cublas:.4f} ms [{smi}]")
 
     for r in probe_times:
         if not r["launches"]:

@@ -22,17 +22,22 @@ Response::
 A malformed request gets ``{"success": false, "error": str(exception)}``,
 as the JAX server answers it.
 
-Usage::
+Usage, the JAX server's command line::
+
+    python -m mpinets_torch.cli.serve CHECKPOINT SCAN.npy [--max-steps 75] [--no-fused]
+
+or with the weights named by an option::
 
     python -m mpinets_torch.cli.serve
         (--weights WEIGHTS.npz | --checkpoint PATH | --random-init SEED)
-        SCAN.npy [--max-steps 75] [--device cuda]
+        SCAN.npy [--max-steps 75] [--no-fused] [--device cuda]
 
-``WEIGHTS.npz`` holds flax-layout weights
-(:func:`mpinets_torch.model.checkpoint.save_flax_npz`); ``--checkpoint``
-takes what :func:`mpinets_torch.cli.infer.load_params` reads (a Lightning
-``.ckpt``, a ``.npz`` or a trainer directory), as the JAX server loads
-through its ``cli.infer.load_params``.
+``CHECKPOINT`` (the same as ``--checkpoint``) is what
+:func:`mpinets_torch.cli.infer.load_params` reads (a Lightning ``.ckpt``, a
+``.npz`` or a trainer directory), as the JAX server loads through its
+``cli.infer.load_params``; ``WEIGHTS.npz`` holds flax-layout weights
+(:func:`mpinets_torch.model.checkpoint.save_flax_npz`). ``--no-fused`` runs
+the plain policy instead of the kernel path.
 """
 
 from __future__ import annotations
@@ -83,25 +88,28 @@ def clean_point_cloud(
 class Planner:
     """Holds the policy and the scan; plans one problem per call
     (``planning_node.py:78-151``). Runs on ``device`` (default ``cuda``;
-    raises when there is none unless ``device="cpu"``) through the kernel
-    path; on the CPU through the plain policy, as the JAX package's planner
-    does off the TPU."""
+    raises when there is none unless ``device="cpu"``). ``fused`` as the JAX
+    package's planner takes it: None takes the kernel path on the card and
+    the plain policy on the CPU, False the plain policy, True the kernel
+    path (on the CPU, the kernels' plain versions)."""
 
     def __init__(self, model: MotionPolicyNetwork, scan_xyz: np.ndarray,
                  max_steps: int = MAX_ROLLOUT_LENGTH, device=None,
-                 fast_grouping: int = 0):
+                 fused: Optional[bool] = None, fast_grouping: int = 0):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.obstacle_points = clean_point_cloud(scan_xyz)
+        if fused is None:
+            fused = self.device.type == "cuda"
         apply_fn = None
-        if self.device.type == "cuda":
+        if fused:
             from mpinets_torch.model.fused import make_fused_apply
 
             apply_fn = make_fused_apply(
                 model.compute_dtype, sa_npoints=model.sa_npoints,
                 fast_grouping=fast_grouping,
             )
-        print(f"# rollout path: {'fused-cuda' if apply_fn else 'plain'} on {self.device}",
+        print(f"# rollout path: {'fused-cuda' if fused else 'plain'} on {self.device}",
               file=sys.stderr, flush=True)
         self.rollout = make_rollout_fn(
             self.model, max_steps=max_steps, stop_on_success=True,
@@ -165,20 +173,31 @@ def load_model(weights: Optional[str], random_init: Optional[int], device=None,
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    src = ap.add_mutually_exclusive_group(required=True)
+    src = ap.add_mutually_exclusive_group()
     src.add_argument("--weights", help="flax-layout weights .npz")
-    src.add_argument("--checkpoint", metavar="PATH",
+    src.add_argument("--checkpoint", metavar="PATH", dest="checkpoint_opt",
                      help="a Lightning .ckpt, a .npz or a trainer checkpoint directory")
     src.add_argument("--random-init", type=int, metavar="SEED",
                      help="random weights made from SEED")
+    ap.add_argument("checkpoint", nargs="?", help="the same as --checkpoint")
     ap.add_argument("scan", help=".npy point cloud [N, 3] (or [N, >=3])")
     ap.add_argument("--max-steps", type=int, default=MAX_ROLLOUT_LENGTH)
+    ap.add_argument("--no-fused", action="store_true",
+                    help="run the plain policy instead of the kernel path")
     ap.add_argument("--device", default=None, help="default cuda; cpu runs the plain path")
-    args = ap.parse_args(argv)
+    # the positionals may stand on either side of the options, as the JAX
+    # server's two required ones may
+    args = ap.parse_intermixed_args(argv)
+    sources = [v for v in (args.checkpoint, args.weights, args.checkpoint_opt,
+                           args.random_init) if v is not None]
+    if len(sources) != 1:
+        ap.error("give the weights once: CHECKPOINT, --checkpoint, --weights or --random-init")
 
-    model = load_model(args.weights or args.checkpoint, args.random_init, args.device)
+    weights = args.checkpoint or args.weights or args.checkpoint_opt
+    model = load_model(weights, args.random_init, args.device)
     scan = np.load(args.scan)[:, :3]
-    planner = Planner(model, scan, max_steps=args.max_steps, device=args.device)
+    planner = Planner(model, scan, max_steps=args.max_steps, device=args.device,
+                      fused=False if args.no_fused else None)
     print("ready", file=sys.stderr, flush=True)
     serve(planner, sys.stdin, sys.stdout)
 

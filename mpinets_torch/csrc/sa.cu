@@ -92,7 +92,7 @@
 //    OR-reduced 16-bit mask of starts); the warp keeps them in a map with
 //    each row's cloud point (-1: a zero raw row), -1 past the block's rows.
 //    Each warp has its own tile buffers, so there is no block barrier inside
-//    the MLP (the CUDA-core kernel pays four per 32-row block).
+//    the MLP.
 //  * A operands (the gathered raw rows, then h1, then h2 over the raw rows'
 //    buffer), weights and biases sit in shared memory, rows padded by 16
 //    bytes so every ldmatrix row lands on its own banks. The gather keeps
@@ -120,12 +120,54 @@
 // that stages the weights once per SM, and wgmma, whose 64-row tiles the
 // packed rows now make possible.
 //
-// sa_kernel (f32; and bf16 beyond the tensor-core kernel's shared memory):
-// the MLP on the CUDA cores (67 TFLOP/s f32 peak), per centroid on blocks
-// of 32 rows held in shared memory; each thread owns one output channel for
-// 8 rows, reads weights through L1 and activations as float4 broadcasts,
-// and folds layer 3 into a running max-pool, so no [rows, C3] activation is
-// stored.
+// sa_kernel<kTr> (f32; and bf16 beyond the tensor-core kernel's shared
+// memory): the MLP on the CUDA cores in f32 FFMA (67 TFLOP/s peak; no TF32,
+// as the reference's f32 path runs at Precision.HIGHEST). What bounds it on
+// the H100: the MLP's FLOP over the valid rows (SA1: about 61 rows a
+// centroid, 115 kFLOP a row, 2.9e10 FLOP and 0.43 ms at B=32; SA0: about
+// 13.8 rows, 16.6 kFLOP a row). Design:
+//  * Rows are packed across the block's cpb centroids (8, 16 or 32, the
+//    plan's) as in sa_kernel_mma: centroid g owns max(min(count, 128), 1)
+//    rows from the exclusive prefix of those counts, and tiles of 128 rows
+//    run over the concatenation, so no centroid is padded. Each warp reads
+//    (or scans for) the selections of cpb / 8 centroids.
+//  * A layer is a register-tiled FFMA product: each thread owns kTr rows by
+//    8 columns of a pass of 256 * kTr * 8 / rows output columns: 4 x 8 where
+//    every layer is at most 64 wide (SA0: one pass of 64), else 8 x 8 (SA1:
+//    passes of 128). Activations sit in shared memory transposed,
+//    [k][rows], so a thread's rows are kTr / 4 LDS.128; a weight slice sits
+//    as [k][columns], so its 8 columns are two (the runs col0 and np / 2 +
+//    col0, so 8 lanes read 128 contiguous bytes). A warp spans every column
+//    group of the pass and 32 / (np / 8) row groups. 8 x 8 is 4 shared loads
+//    a 64 FFMA, against 12 a 32 in the kernel this one replaced. Each
+//    output's sum runs in ascending k from 0, then the bias: the plain
+//    version's differs only in order.
+//  * The weights stream through shared memory in slices of 8 * kTr k rows
+//    by one pass's columns, double-buffered with cp.async: the next slice,
+//    across the layers and on to the next tile's first, is in flight while
+//    one computes, behind one barrier a slice. The three layers at SA1 (231
+//    KB in f32) do not fit beside the tiles.
+//  * The epilogue stays in registers: bias, the layer-1 recentring term
+//    W1[:3]^T c of each row's own centroid, point 0's layer-1 row for a
+//    centroid without neighbours under kPoint0 (made once a block), ReLU and
+//    the bf16 rounding where the compute type is bf16. h1 and h2 stay in
+//    shared memory for the tile (h2 over the raw rows); layer 3 is never
+//    stored: a warp whose rows are all one centroid's takes their max by
+//    shuffles and one shared atomicMax a column, else each thread one a run
+//    of rows of one centroid (the ReLU outputs are non-negative, whose bits
+//    order as ints).
+//  * Shared memory at SA0: 91 KB at cpb 8 to 109 KB at 32, two blocks a SM
+//    under __launch_bounds__(256, 2); at SA1: 213 KB at 8, 225 KB at 16 (32
+//    does not fit), one block a SM, so the 8 x 8 instantiations take up to
+//    255 registers. Wider layers take 32-row tiles of 4 x 8; a stage whose
+//    tiles do not fit even then is refused.
+//  * What holds it at about a third of the f32 peak on an H100: the FFMA
+//    issue of 8 (SA1) or 16 (SA0) warps a SM. With every shared load of the
+//    k loop replaced by registers, SA1 at B=32 took 0.87x as long, so the
+//    loads are not what bounds it; then the epilogues (about 15% at SA1,
+//    25% at SA0) and the barriers a slice.
+// A row's features depend on its own gathered row alone, summed in the same
+// order in any tile, so they are bit-equal whatever cpb is.
 //
 // Rounding: the in-ball distance is written with __fsub_rn/__fmul_rn/
 // __fadd_rn, which nvcc never contracts into FMAs, so membership matches
@@ -144,13 +186,11 @@ namespace {
 
 constexpr int kNs = 128;      // neighbours kept per centroid
 constexpr int kChunk = 128;   // points per chunk (the fast window's unit)
-constexpr int kTs = 8;        // centroids per block of the CUDA-core kernel: one a warp
+constexpr int kMinCpb = 8;    // MLP kernels: centroids per block, at least (one a warp)
 constexpr int kWarps = 8;     // warps per MLP block (both kernels)
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxCpw = 4;    // tensor-core kernel: centroids per warp, at most (cpb 32)
-constexpr int kRows = 32;     // CUDA-core MLP row block
-constexpr int kRpt = 8;       // rows per thread item
-constexpr int kGroups = kRows / kRpt;
+constexpr int kMaxCpw = 4;    // MLP kernels: centroids per warp, at most (cpb 32)
+constexpr int kTc = 8;        // CUDA-core MLP: output columns a thread owns (two runs of 4)
 constexpr int kTile = 16;     // tensor-core row tile (the mma's m)
 constexpr int kPad = 8;       // bf16 padding of each shared row (16 bytes)
 constexpr int kNc = 32;       // tensor-core output columns per pass
@@ -192,11 +232,16 @@ struct SaArgs {
   int n, s, c, kp, c1, c2, c3, window, bf16;
   int k1p, n1p, n2p, n3p;  // 3 + c, c1, c2, c3 rounded up to 16
   float r2;
-  int cpb;                 // centroids per block: 8 (CUDA-core), 8, 16 or 32 (tensor-core)
+  int cpb;                 // centroids per block: 8, 16 or 32
+  int rows;                // CUDA-core kernel: rows per tile (32 or 128)
 };
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));  // round to nearest even
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 __device__ __forceinline__ float dist2(float x, float y, float z, float cx, float cy,
@@ -413,162 +458,423 @@ __device__ __forceinline__ void scan_windows(const SaArgs& a, const float* xyz, 
 }
 
 // ---------------------------------------------------------------------------
-// CUDA-core MLP
+// CUDA-core MLP (f32; bf16 beyond the tensor-core kernel's shared memory)
 // ---------------------------------------------------------------------------
 
-// One dense layer over a kRows-row block held in shared memory.
-// kMode 0: layer 1, (acc + b) - bc, ReLU, round; 1: hidden, acc + b, ReLU,
-// round; 2: last, acc + b, ReLU, running max of rows < row_limit into out
-// (= pmax [kGroups][m]).
-template <int kMode>
-__device__ __forceinline__ void dense(const float* in, int kin, const float* __restrict__ w,
-                                      const float* __restrict__ bias, const float* bc, int m,
-                                      float* out, int row_limit, bool bf16) {
-  for (int item = threadIdx.x; item < kGroups * m; item += kThreads) {
-    const int j = item % m;
-    const int grp = item / m;
-    const float* a = in + grp * kRpt * kin;
-    float acc[kRpt];
+// The layout of a row tile of `rows` rows (32 or 128) when each thread
+// owns tr rows (4 or 8) by kTc columns: the block's 256 threads are rows / tr
+// row groups by 256 * tr / rows column groups, so one pass of a layer covers
+// pass_cols(rows, tr) output columns; a weight slice is slice_rows(rows, tr)
+// k rows of a pass (64 KB double-buffered at 128 rows of 8, 16 KB at 4).
+__host__ __device__ constexpr int pass_cols(int rows, int tr) {
+  return kThreads * tr * kTc / rows;
+}
+__host__ __device__ constexpr int slice_rows(int rows, int tr) {
+  return rows >= 128 ? 8 * tr : 4 * tr;
+}
+
+// Dynamic shared memory of sa_kernel<tr> for kin = 3 + c inputs, these
+// widths, row tiles of `rows` and cpb centroids per block, in the kernel's
+// order.
+size_t cc_smem_bytes(int kin, int c1, int c2, int c3, int rows, int tr, int cpb) {
+  const size_t lda = rows + 4;
+  const size_t floats = (size_t)(std::max(kin, c2) + c1) * lda +
+                        2 * (size_t)slice_rows(rows, tr) * pass_cols(rows, tr) +
+                        (size_t)(c1 + c2 + c3) + 4 * (size_t)c1 + 3 * (size_t)cpb;
+  const size_t ints = (size_t)cpb * (c3 + kNs + 2) + 1 + 2 * (size_t)rows;
+  return 4 * (floats + ints);
+}
+
+// v[l] by a select, not an indexed load: a runtime index would put the
+// array in local memory.
+template <typename T>
+__device__ __forceinline__ T pick3(const T (&v)[3], int l) {
+  return l == 0 ? v[0] : l == 1 ? v[1] : v[2];
+}
+
+// One streamed weight slice: layer (0-2), output pass and first k row.
+struct Slice {
+  int layer, pass, k0;
+};
+
+// The MLP's three layers as the CUDA-core kernel streams them: layer l reads
+// kin_l rows of W_l [kin_l, n_l] in passes of np columns and slices of ks
+// rows, pass by pass.
+struct CcLayers {
+  const float* w[3];
+  int kin[3], n[3], slices[3];  // slices: passes x k slices
+  int ksl[3];                   // k slices per pass
+  int ks;                       // k rows per slice
+  __device__ CcLayers(const SaArgs& a, int np, int ks_) : ks(ks_) {
+    w[0] = a.w1;
+    w[1] = a.w2;
+    w[2] = a.w3;
+    kin[0] = 3 + a.c;
+    kin[1] = n[0] = a.c1;
+    kin[2] = n[1] = a.c2;
+    n[2] = a.c3;
 #pragma unroll
-    for (int r = 0; r < kRpt; ++r) acc[r] = 0.f;
-    for (int k = 0; k < kin; k += 4) {
-      const float w0 = __ldg(w + (size_t)k * m + j);
-      const float w1 = __ldg(w + (size_t)(k + 1) * m + j);
-      const float w2 = __ldg(w + (size_t)(k + 2) * m + j);
-      const float w3 = __ldg(w + (size_t)(k + 3) * m + j);
-#pragma unroll
-      for (int r = 0; r < kRpt; ++r) {
-        const float4 v = *reinterpret_cast<const float4*>(a + r * kin + k);
-        acc[r] = fmaf(v.x, w0, acc[r]);
-        acc[r] = fmaf(v.y, w1, acc[r]);
-        acc[r] = fmaf(v.z, w2, acc[r]);
-        acc[r] = fmaf(v.w, w3, acc[r]);
+    for (int l = 0; l < 3; ++l) {
+      ksl[l] = (kin[l] + ks - 1) / ks;
+      slices[l] = (n[l] + np - 1) / np * ksl[l];
+    }
+  }
+  __device__ Slice at(int j) const {
+    int l = 0;
+    if (j >= slices[0]) {
+      j -= slices[0];
+      l = 1;
+      if (j >= slices[1]) {
+        j -= slices[1];
+        l = 2;
       }
     }
-    const float bj = bias[j];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int r = 0; r < kRpt; ++r) {
-      float h = acc[r] + bj;
-      if (kMode == 0) h = h - bc[j];
-      h = fmaxf(h, 0.f);
-      if (kMode < 2) {
-        out[(grp * kRpt + r) * m + j] = bf16 ? round_bf16(h) : h;
-      } else if (grp * kRpt + r < row_limit) {
-        mx = fmaxf(mx, h);
-      }
+    const int k = pick3(ksl, l);
+    return {l, j / k, (j % k) * ks};
+  }
+};
+
+// Slice sc of the weights into dst [ks][np] (columns past n and rows past
+// kin are left as they are: no output the kernel keeps reads them), with
+// cp.async by the whole block; the caller commits the group.
+__device__ __forceinline__ void load_slice(float* dst, const CcLayers& L, Slice sc, int np) {
+  const int l = sc.layer, n = pick3(L.n, l);
+  const int c0 = sc.pass * np;
+  const int cols = min(np, n - c0);
+  const int kn = min(L.ks, pick3(L.kin, l) - sc.k0);
+  const float* src = pick3(L.w, l) + (size_t)sc.k0 * n + c0;
+  if ((n & 3) == 0) {  // 16-byte copies: rows and columns stay aligned
+    const int per = cols >> 2;
+    for (int i = threadIdx.x; i < kn * per; i += kThreads) {
+      const int r = i / per, q = i - r * per;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                       smem_u32(dst + r * np + 4 * q)),
+                   "l"(src + (size_t)r * n + 4 * q)
+                   : "memory");
     }
-    if (kMode == 2) out[grp * m + j] = fmaxf(out[grp * m + j], mx);
+  } else {
+    for (int i = threadIdx.x; i < kn * cols; i += kThreads) {
+      const int r = i / cols, q = i - r * cols;
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst + r * np + q)),
+                   "l"(src + (size_t)r * n + q)
+                   : "memory");
+    }
   }
 }
 
-// kRaw: write the raw block; kPoint0: a centroid without neighbours takes
-// point 0's layer-1 row (centroids off the cloud), else a zero raw row;
-// kFast: scan the window, else read the exact selection.
-template <bool kRaw, bool kPoint0, bool kFast>
-__global__ void __launch_bounds__(kThreads) sa_kernel(SaArgs a) {
+// kTr: output rows a thread owns (4 or 8); kRaw: write the raw block;
+// kPoint0: a centroid without neighbours takes point 0's layer-1 row
+// (centroids off the cloud), else a zero raw row; kFast: scan the window,
+// else read the exact selection.
+template <int kTr, bool kRaw, bool kPoint0, bool kFast>
+__global__ void __launch_bounds__(kThreads, kTr == 8 ? 1 : 2) sa_kernel(SaArgs a) {
   extern __shared__ float4 smem4[];
-  float* raw = reinterpret_cast<float*>(smem4);  // [kRows][kp]
-  float* h1 = raw + kRows * a.kp;                 // [kRows][c1]
-  float* h2 = h1 + kRows * a.c1;                  // [kRows][c2]
-  float* bc = h2 + kRows * a.c2;                  // [c1]
-  float* pmax = bc + a.c1;                        // [kGroups][c3]
-  int* sel = reinterpret_cast<int*>(pmax + kGroups * a.c3);  // [kTs][kNs]
-  int* cnt = sel + kTs * kNs;                     // [kTs]
+  const int rows = a.rows;
+  const int np = pass_cols(rows, kTr);
+  const int ks = slice_rows(rows, kTr);
+  const int half = np >> 1;
+  const int lda = rows + 4;
+  const int kin = 3 + a.c;
+  const int cpb = a.cpb;
+  float* buf_a = reinterpret_cast<float*>(smem4);     // [max(kin, c2)][lda]: raw^T, then h2^T
+  float* buf_b = buf_a + max(kin, a.c2) * lda;         // [c1][lda]: h1^T
+  float* wbuf = buf_b + a.c1 * lda;                    // [2][ks][np]: weight slices
+  float* bias = wbuf + 2 * ks * np;                    // b1, b2, b3
+  float* w1c = bias + a.c1 + a.c2 + a.c3;              // [3][c1]: W1 rows 0-2, f32
+  float* h0 = w1c + 3 * a.c1;                          // [c1]: point 0's layer-1 row
+  float* cent = h0 + a.c1;                             // [cpb][3]
+  int* pmax = reinterpret_cast<int*>(cent + 3 * cpb);  // [cpb][c3]: bits of the max-pool
+  int* sel = pmax + cpb * a.c3;                        // [cpb][kNs]
+  int* cnt = sel + cpb * kNs;                          // [cpb]; -1: no centroid
+  int* off = cnt + cpb;                                // [cpb + 1]: row offsets, then total
+  int* gmap = off + cpb + 1;                           // [rows]: tile row -> centroid, -1 past
+  int* pmap = gmap + rows;                             // [rows]: -> cloud point, -1 zero row
 
   const int b = blockIdx.y;
-  const int s0 = blockIdx.x * kTs;
+  const int s0 = blockIdx.x * cpb;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const float* xyz = a.xyz + (size_t)b * a.n * 3;
   const float* feat = a.feat + (size_t)b * a.n * a.c;
   const bool bf16 = a.bf16 != 0;
+  const CcLayers L(a, np, ks);
+  const int per_tile = L.slices[0] + L.slices[1] + L.slices[2];
+  // the weights are double-buffered: slice i (of the block's sequence, tile
+  // after tile) goes to buffer i % 2, issued while slice i - 1 computes
+  const auto issue = [&](int i, int tiles) {
+    if (i < tiles * per_tile) {
+      load_slice(wbuf + (i & 1) * ks * np, L, L.at(i % per_tile), np);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
 
-  // ---- selection of centroid s0 + w, by warp w -------------------------------
-  if constexpr (kFast) {
-    scan_windows(a, xyz, b, s0 + warp, 1, bf16, lane, sel + warp * kNs, cnt + warp);
-  } else {
-    load_selections(a, b, s0 + warp, 1, lane, sel + warp * kNs, cnt + warp);
+  for (int j = tid; j < a.c1 + a.c2 + a.c3; j += kThreads) {
+    const int j2 = j - a.c1, j3 = j2 - a.c2;
+    bias[j] = j2 < 0 ? a.b1[j] : j3 < 0 ? a.b2[j2] : a.b3[j3];
+  }
+  for (int i = tid; i < 3 * a.c1; i += kThreads) w1c[i] = a.w1f[i];
+  if constexpr (kPoint0) {
+    for (int j = tid; j < a.c1; j += kThreads) {
+      float h = a.b1[j];
+      for (int k = 0; k < kin; ++k) {
+        h += (k < 3 ? xyz[k] : feat[k - 3]) * a.w1f[(size_t)k * a.c1 + j];
+      }
+      h0[j] = h;
+    }
+  }
+  for (int i = tid; i < 3 * cpb; i += kThreads) {
+    cent[i] = s0 + i / 3 < a.s ? a.cent[((size_t)b * a.s + s0) * 3 + i] : 0.f;
+  }
+  for (int i = tid; i < cpb * a.c3; i += kThreads) pmax[i] = 0;  // +0.f
+
+  // ---- warp w: selection and raw block of centroids s0 + w * cpw + g ------
+  {
+    const int cpw = cpb / kWarps;
+    const int g0 = warp * cpw;
+    if constexpr (kFast) {
+      scan_windows(a, xyz, b, s0 + g0, cpw, bf16, lane, sel + g0 * kNs, cnt + g0);
+    } else {
+      load_selections(a, b, s0 + g0, cpw, lane, sel + g0 * kNs, cnt + g0);
+    }
+    if constexpr (kRaw) {  // all 128 slots: kept rows as read, zero rows after them
+      for (int g = g0; g < g0 + cpw && s0 + g < a.s; ++g) {
+        const int kept = min(cnt[g], kNs);
+        float* raw_out = a.raw + ((size_t)b * a.s + s0 + g) * kNs * kin;
+        for (int i = lane; i < kNs * kin; i += 32) {
+          const int r = i / kin;
+          const int k = i - r * kin;
+          float v = 0.f;
+          if (r < kept) {
+            const int q = sel[g * kNs + r];
+            v = k < 3 ? xyz[3 * q + k] : feat[(size_t)q * a.c + (k - 3)];
+          }
+          raw_out[i] = v;
+        }
+      }
+    }
   }
   __syncthreads();
-
-  // ---- gather + MLP + max-pool, one centroid at a time ----------------------
-  for (int g = 0; g < kTs; ++g) {
-    const int s = s0 + g;
-    if (s >= a.s) break;
-    const int kept = min(cnt[g], kNs);
-    const int nrows = max(kept, 1);
-    const float* c = a.cent + ((size_t)b * a.s + s) * 3;
-    const float cx = c[0], cy = c[1], cz = c[2];
-    for (int j = tid; j < a.c1; j += kThreads) {
-      bc[j] = a.w1f[j] * cx + a.w1f[a.c1 + j] * cy + a.w1f[2 * a.c1 + j] * cz;
-    }
-    for (int i = tid; i < kGroups * a.c3; i += kThreads) pmax[i] = -INFINITY;
-    if constexpr (kRaw) {
-      // all 128 slots, coalesced: kept rows as read, zero rows after them
-      const int p = 3 + a.c;
-      float* raw_out = a.raw + ((size_t)b * a.s + s) * kNs * p;
-      for (int i = tid; i < kNs * p; i += kThreads) {
-        const int r = i / p;
-        const int k = i - r * p;
-        float v = 0.f;
-        if (r < kept) {
-          const int q = sel[g * kNs + r];
-          v = k < 3 ? xyz[3 * q + k] : feat[(size_t)q * a.c + (k - 3)];
-        }
-        raw_out[i] = v;
-      }
-    }
-    for (int r0 = 0; r0 < nrows; r0 += kRows) {
-      for (int i = tid; i < kRows * a.kp; i += kThreads) {
-        const int r = i / a.kp;
-        const int k = i - r * a.kp;
-        float v = 0.f;
-        if (r0 + r < kept && k < 3 + a.c) {
-          const int p = sel[g * kNs + r0 + r];
-          v = k < 3 ? xyz[3 * p + k] : feat[(size_t)p * a.c + (k - 3)];
-          if (bf16) v = round_bf16(v);
-        }
-        raw[i] = v;
-      }
-      __syncthreads();
-      dense<0>(raw, a.kp, a.w1, a.b1, bc, a.c1, h1, 0, bf16);
-      __syncthreads();
-      if (kPoint0 && cnt[g] == 0) {  // block-uniform; then nrows == 1, row 0 only
-        for (int j = tid; j < a.c1; j += kThreads) {
-          float h = a.b1[j];
-          for (int k = 0; k < 3 + a.c; ++k) {
-            h += (k < 3 ? xyz[k] : feat[k - 3]) * a.w1f[(size_t)k * a.c1 + j];
-          }
-          h = fmaxf(h - bc[j], 0.f);
-          h1[j] = bf16 ? round_bf16(h) : h;
-        }
-        __syncthreads();
-      }
-      dense<1>(h1, a.c1, a.w2, a.b2, nullptr, a.c2, h2, 0, bf16);
-      __syncthreads();
-      dense<2>(h2, a.c2, a.w3, a.b3, nullptr, a.c3, pmax, nrows - r0, bf16);
-      __syncthreads();
-    }
-    float* out = a.out + ((size_t)b * a.s + s) * a.c3;
-    for (int j = tid; j < a.c3; j += kThreads) {
-      float m = pmax[j];
+  // ---- the block's rows, packed: centroid g owns max(min(count, kNs), 1)
+  // rows from off[g]
+  if (warp == 0) {
+    const int nrows = lane < cpb && cnt[lane] >= 0 ? max(min(cnt[lane], kNs), 1) : 0;
+    int incl = nrows;
 #pragma unroll
-      for (int q = 1; q < kGroups; ++q) m = fmaxf(m, pmax[q * a.c3 + j]);
-      out[j] = m;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += t;
+    }
+    if (lane < cpb) off[lane] = incl - nrows;
+    const int total = __shfl_sync(0xffffffffu, incl, 31);
+    if (lane == 0) off[cpb] = total;
+  }
+  __syncthreads();
+  const int total = off[cpb];
+  const int tiles = (total + rows - 1) / rows;
+
+  // Tile rows t0 .. t0 + rows - 1: their centroids and points, then their raw
+  // rows [xyz, feat] (compute-rounded; zero past a centroid's count and past
+  // the block's rows) into buf_a transposed, kGather loads in flight a thread.
+  const auto gather = [&](int t0) {
+    for (int r = tid; r < rows; r += kThreads) {
+      const int row = t0 + r;
+      int g = -1, p = -1;
+      if (row < total) {
+        g = 0;
+        for (int q = 1; q < cpb; ++q) g += off[q] <= row;
+        const int j = row - off[g];
+        if (j < min(cnt[g], kNs)) p = sel[g * kNs + j];
+      }
+      gmap[r] = g;
+      pmap[r] = p;
     }
     __syncthreads();
+    for (int i0 = tid; i0 < rows * kin; i0 += kThreads * kGather) {
+      float v[kGather];
+#pragma unroll
+      for (int u = 0; u < kGather; ++u) {
+        const int i = i0 + u * kThreads;
+        v[u] = 0.f;
+        if (i < rows * kin) {
+          const int r = i / kin, k = i - r * kin;
+          const int p = pmap[r];
+          if (p >= 0) v[u] = k < 3 ? xyz[3 * p + k] : feat[(size_t)p * a.c + (k - 3)];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kGather; ++u) {
+        const int i = i0 + u * kThreads;
+        if (i < rows * kin) {
+          const int r = i / kin, k = i - r * kin;
+          buf_a[k * lda + r] = bf16 ? round_bf16(v[u]) : v[u];
+        }
+      }
+    }
+  };
+
+  // this thread's output tile of each pass: rows row0 .. row0 + kTr - 1,
+  // columns col0 .. col0 + 3 and half + col0 .. half + col0 + 3 of the pass.
+  // A warp is 32 / cg row groups by all cg = np / 8 column groups (cg 8 to
+  // 32), so its activation loads are 32 / cg addresses (broadcast) and its
+  // weight loads cg * 16 contiguous bytes each
+  const int cg = min(np >> 3, 32);
+  const int row0 = (warp * (32 / cg) + lane / cg) * kTr;
+  const int col0 = (lane % cg) * 4;
+
+  issue(0, tiles);
+  gather(0);
+  float acc[kTr][kTc];
+  for (int t = 0; t < tiles; ++t) {
+    for (int j = 0; j < per_tile; ++j) {
+      const int i = t * per_tile + j;
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      __syncthreads();  // slice i is in; every thread is past slice i - 1
+      issue(i + 1, tiles);
+      const Slice sc = L.at(j);
+      const int l = sc.layer;
+      if (sc.k0 == 0) {
+#pragma unroll
+        for (int r = 0; r < kTr; ++r) {
+#pragma unroll
+          for (int c = 0; c < kTc; ++c) acc[r][c] = 0.f;
+        }
+      }
+      const float* A = (l == 1 ? buf_b : buf_a) + row0;
+      const float* W = wbuf + (i & 1) * ks * np + col0;
+      const int kin_l = pick3(L.kin, l);
+      const int kn = min(ks, kin_l - sc.k0);
+      A += sc.k0 * lda;
+#pragma unroll 8
+      for (int k = 0; k < kn; ++k) {  // ascending k, as every column's sum runs
+        float ar[kTr];
+#pragma unroll
+        for (int r = 0; r < kTr; r += 4) {
+          const float4 av = *reinterpret_cast<const float4*>(A + k * lda + r);
+          ar[r] = av.x;
+          ar[r + 1] = av.y;
+          ar[r + 2] = av.z;
+          ar[r + 3] = av.w;
+        }
+        const float4 wl = *reinterpret_cast<const float4*>(W + k * np);
+        const float4 wh = *reinterpret_cast<const float4*>(W + k * np + half);
+        const float wc[kTc] = {wl.x, wl.y, wl.z, wl.w, wh.x, wh.y, wh.z, wh.w};
+#pragma unroll
+        for (int r = 0; r < kTr; ++r) {
+#pragma unroll
+          for (int c = 0; c < kTc; ++c) acc[r][c] = fmaf(ar[r], wc[c], acc[r][c]);
+        }
+      }
+      if (sc.k0 + kn < kin_l) continue;
+      // ---- epilogue of the pass, in registers ------------------------------
+      int gr[kTr];  // the rows' centroids, -1 past the block's rows
+#pragma unroll
+      for (int r = 0; r < kTr; ++r) gr[r] = gmap[row0 + r];
+      const int n = pick3(L.n, l);
+      const float* bl = bias + (l == 0 ? 0 : l == 1 ? a.c1 : a.c1 + a.c2);
+      if (l == 0) {  // bias, the recentring term of each row's own centroid, ReLU
+        float cx[kTr], cy[kTr], cz[kTr];
+        bool zero[kTr];  // kPoint0: the row of a centroid without neighbours
+#pragma unroll
+        for (int r = 0; r < kTr; ++r) {
+          const int g = max(gr[r], 0);
+          const bool live = gr[r] >= 0;
+          cx[r] = live ? cent[3 * g] : 0.f;
+          cy[r] = live ? cent[3 * g + 1] : 0.f;
+          cz[r] = live ? cent[3 * g + 2] : 0.f;
+          zero[r] = kPoint0 && live && cnt[g] == 0;
+        }
+#pragma unroll
+        for (int c = 0; c < kTc; ++c) {
+          const int col = sc.pass * np + col0 + (c & 3) + (c >> 2) * half;
+          if (col >= n) continue;
+          const float bj = bl[col], h0j = kPoint0 ? h0[col] : 0.f;
+          const float wx = w1c[col], wy = w1c[a.c1 + col], wz = w1c[2 * a.c1 + col];
+          float v[kTr];
+#pragma unroll
+          for (int r = 0; r < kTr; ++r) {
+            const float bc = wx * cx[r] + wy * cy[r] + wz * cz[r];
+            v[r] = fmaxf((zero[r] ? h0j : acc[r][c] + bj) - bc, 0.f);
+            if (bf16) v[r] = round_bf16(v[r]);
+          }
+          float* out = buf_b + col * lda + row0;
+#pragma unroll
+          for (int r = 0; r < kTr; r += 4) {
+            *reinterpret_cast<float4*>(out + r) = make_float4(v[r], v[r + 1], v[r + 2], v[r + 3]);
+          }
+        }
+      } else if (l == 1) {  // bias, ReLU
+#pragma unroll
+        for (int c = 0; c < kTc; ++c) {
+          const int col = sc.pass * np + col0 + (c & 3) + (c >> 2) * half;
+          if (col >= n) continue;
+          const float bj = bl[col];
+          float v[kTr];
+#pragma unroll
+          for (int r = 0; r < kTr; ++r) {
+            v[r] = fmaxf(acc[r][c] + bj, 0.f);
+            if (bf16) v[r] = round_bf16(v[r]);
+          }
+          float* out = buf_a + col * lda + row0;
+#pragma unroll
+          for (int r = 0; r < kTr; r += 4) {
+            *reinterpret_cast<float4*>(out + r) = make_float4(v[r], v[r + 1], v[r + 2], v[r + 3]);
+          }
+        }
+      } else {  // bias, ReLU, and the max-pool segmented by centroid
+        // the warp's rows (32 / cg row groups, contiguous) all one centroid's:
+        // a max over them by shuffles and one atomic a column; else one
+        // atomic a run of rows of one centroid in each thread's rows
+        const int wrow = warp * (32 / cg) * kTr;
+        const int wg = gmap[wrow];
+        const bool whole = wg >= 0 && wg == gmap[wrow + (32 / cg) * kTr - 1];
+#pragma unroll
+        for (int c = 0; c < kTc; ++c) {
+          const int col = sc.pass * np + col0 + (c & 3) + (c >> 2) * half;
+          const float bj = col < n ? bl[col] : 0.f;
+          float v[kTr];
+#pragma unroll
+          for (int r = 0; r < kTr; ++r) v[r] = fmaxf(acc[r][c] + bj, 0.f);
+          if (whole) {  // warp-uniform
+            float m = v[0];
+#pragma unroll
+            for (int r = 1; r < kTr; ++r) m = fmaxf(m, v[r]);
+            for (int o = cg; o < 32; o <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+            if (lane < cg && col < n) atomicMax(pmax + wg * a.c3 + col, __float_as_int(m));
+            continue;
+          }
+          if (col >= n) continue;
+          int g = gr[0];
+          float m = v[0];
+#pragma unroll
+          for (int r = 1; r < kTr; ++r) {
+            if (gr[r] == g) {
+              m = fmaxf(m, v[r]);
+            } else {
+              if (g >= 0) atomicMax(pmax + g * a.c3 + col, __float_as_int(m));
+              g = gr[r];
+              m = v[r];
+            }
+          }
+          if (g >= 0) atomicMax(pmax + g * a.c3 + col, __float_as_int(m));
+        }
+      }
+    }
+    if (t + 1 < tiles) {
+      __syncthreads();  // every thread is past the tile's layer 3
+      gather((t + 1) * rows);
+    }
+  }
+  __syncthreads();
+  float* out = a.out + ((size_t)b * a.s + s0) * a.c3;
+  for (int i = tid; i < cpb * a.c3; i += kThreads) {
+    if (s0 + i / a.c3 < a.s) out[i] = __int_as_float(pmax[i]);
   }
 }
 
 // ---------------------------------------------------------------------------
 // Tensor-core MLP (bf16)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // Four 8x8 b16 matrices from shared memory (addr: a shared-space byte
 // address); lane l gives the address of row l % 8 of matrix l / 8 and gets,
@@ -960,26 +1266,53 @@ cudaError_t device_attribute(cudaDeviceAttr attr, int* value) {
 struct Plan {
   void (*kernel)(SaArgs);
   size_t smem;
-  int mma;  // 1: the tensor-core kernel
-  int cpb;  // centroids per block
+  int mma;   // 1: the tensor-core kernel
+  int cpb;   // centroids per block
+  int rows;  // rows per tile: 16 (tensor-core), 32 or 128 (CUDA-core)
+  int tr;    // CUDA-core kernel: output rows a thread owns, 4 or 8
 };
 
 template <bool kRaw, bool kPoint0, bool kFast>
-void pick(int mma, Plan* p) {
-  p->kernel = mma ? sa_kernel_mma<kRaw, kPoint0, kFast> : sa_kernel<kRaw, kPoint0, kFast>;
+void pick(Plan* p) {
+  p->kernel = p->mma        ? sa_kernel_mma<kRaw, kPoint0, kFast>
+              : p->tr == 8 ? sa_kernel<8, kRaw, kPoint0, kFast>
+                           : sa_kernel<4, kRaw, kPoint0, kFast>;
+}
+
+// The CUDA-core kernel's tile at these widths, the first that fits in
+// shared memory at 8 centroids a block: where every layer is at most 64
+// wide, 128 rows of 4 a thread (one pass of 64 columns a layer), else 128
+// rows of 8 a thread (passes of 128 columns: 4 shared loads a 64 FFMA); then
+// 32 rows of 4 a thread (passes of 256). -> false where neither fits.
+bool cc_tile(int kin, int c1, int c2, int c3, size_t optin, Plan* p) {
+  const bool wide = std::max({c1, c2, c3}) > 64;
+  const int tiles[][2] = {{128, wide ? 8 : 4}, {32, 4}};
+  for (const auto& t : tiles) {
+    if (cc_smem_bytes(kin, c1, c2, c3, t[0], t[1], kMinCpb) <= optin) {
+      p->rows = t[0];
+      p->tr = t[1];
+      return true;
+    }
+  }
+  return false;
 }
 
 // The MLP launch for b rows of s centroids at these widths and options: the
-// kernel, its dynamic shared memory and its centroids per block. bf16 takes
-// the tensor-core kernel when it fits the device's shared memory at 8
-// centroids a block, else the CUDA-core kernel (8 a block). The
-// tensor-core kernel takes the largest of 32, 16 and 8 centroids a block
-// whose shared memory fits and whose grid still fills the card once
-// (b * ceil(s / cpb) blocks at least the blocks per SM at that size times
-// the SMs), else 8. cpb_req (8, 16 or 32; 0: the rule's choice) sets it
-// instead; cudaErrorInvalidValue where the kernel does not take it.
-cudaError_t plan(int b, int s, int c, int kp, int c1, int c2, int c3, int bf16, int in_cloud,
-                 int raw, int fast, int cpb_req, Plan* p) {
+// kernel, its dynamic shared memory, its centroids per block and its tile.
+// bf16 takes the tensor-core kernel when it fits the device's shared memory
+// at 8 centroids a block, else the CUDA-core kernel; f32 takes the CUDA-core
+// kernel. Both take the largest of 32, 16 and 8 centroids a block whose
+// shared memory fits and whose grid still fills the card once (b * ceil(s /
+// cpb) blocks at least the blocks per SM at that size times the SMs), else
+// 8. The CUDA-core kernel asks more: a grid of at least two blocks a SM as
+// well as a full wave (its blocks are long: at SA1 B=32, one block a SM, 256
+// blocks of 16 centroids took 5% longer than 512 of 8 on an H100; at SA0
+// B=32, two a SM, 512 of 32 took 9% less than 1024 of 16), and as many
+// blocks a SM as at 8. cpb_req (8, 16 or 32; 0: the rule's choice) sets it
+// instead; cudaErrorInvalidValue where the kernel does not take it, or where
+// no tile of the CUDA-core kernel fits.
+cudaError_t plan(int b, int s, int c, int c1, int c2, int c3, int bf16, int in_cloud, int raw,
+                 int fast, int cpb_req, Plan* p) {
   const int k1p = round16(3 + c), n1p = round16(c1), n2p = round16(c2), n3p = round16(c3);
   if (cpb_req != 0 && cpb_req != 8 && cpb_req != 16 && cpb_req != 32) {
     return cudaErrorInvalidValue;
@@ -988,27 +1321,35 @@ cudaError_t plan(int b, int s, int c, int kp, int c1, int c2, int c3, int bf16, 
   cudaError_t e = device_attribute(cudaDevAttrMaxSharedMemoryPerBlockOptin, &optin);
   if (e == cudaSuccess) e = device_attribute(cudaDevAttrMultiProcessorCount, &sms);
   if (e != cudaSuccess) return e;
-  p->mma = bf16 && mma_smem_bytes(k1p, n1p, n2p, n3p, c3, kTs) <= (size_t)optin;
+  p->mma = bf16 && mma_smem_bytes(k1p, n1p, n2p, n3p, c3, kMinCpb) <= (size_t)optin;
+  p->rows = kTile;
+  p->tr = 0;
+  if (!p->mma && !cc_tile(3 + c, c1, c2, c3, optin, p)) return cudaErrorInvalidValue;
   if (fast) {
-    pick<false, false, true>(p->mma, p);
+    pick<false, false, true>(p);
   } else if (raw) {
-    pick<true, false, false>(p->mma, p);
+    pick<true, false, false>(p);
   } else if (in_cloud) {
-    pick<false, false, false>(p->mma, p);
+    pick<false, false, false>(p);
   } else {
-    pick<false, true, false>(p->mma, p);
+    pick<false, true, false>(p);
   }
-  if (!p->mma) {
-    if (cpb_req != 0 && cpb_req != kTs) return cudaErrorInvalidValue;
-    p->cpb = kTs;
-    p->smem = ((size_t)kRows * (kp + c1 + c2) + c1 + (size_t)kGroups * c3) * sizeof(float) +
-              (kTs * kNs + kTs) * sizeof(int);
-    return cudaFuncSetAttribute(p->kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)p->smem);
+  const auto smem_at = [&](int cpb) {
+    return p->mma ? mma_smem_bytes(k1p, n1p, n2p, n3p, c3, cpb)
+                  : cc_smem_bytes(3 + c, c1, c2, c3, p->rows, p->tr, cpb);
+  };
+  int per_sm_min = 0;  // the CUDA-core kernel's blocks a SM at cpb 8
+  if (!p->mma && cpb_req == 0) {
+    const size_t smem = smem_at(kMinCpb);
+    e = cudaFuncSetAttribute(p->kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e == cudaSuccess) {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm_min, p->kernel, kThreads, smem);
+    }
+    if (e != cudaSuccess) return e;
   }
-  for (int cpb = 32; cpb >= 8; cpb /= 2) {
+  for (int cpb = 32; cpb >= kMinCpb; cpb /= 2) {
     if (cpb_req != 0 && cpb != cpb_req) continue;
-    const size_t smem = mma_smem_bytes(k1p, n1p, n2p, n3p, c3, cpb);
+    const size_t smem = smem_at(cpb);
     if (smem > (size_t)optin) {
       if (cpb_req != 0) return cudaErrorInvalidValue;
       continue;
@@ -1016,20 +1357,21 @@ cudaError_t plan(int b, int s, int c, int kp, int c1, int c2, int c3, int bf16, 
     const long blocks = (long)b * ((s + cpb - 1) / cpb);
     // a grid below one block a SM never fills the card; at 8 blocks a SM
     // (2048 threads) and above it always does, without asking
-    if (cpb_req == 0 && cpb != kTs && blocks < sms) continue;
+    if (cpb_req == 0 && cpb != kMinCpb && blocks < sms) continue;
     e = cudaFuncSetAttribute(p->kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
-    if (cpb_req == 0 && cpb != kTs && blocks < 8L * sms) {
+    if (cpb_req == 0 && cpb != kMinCpb && (blocks < 8L * sms || !p->mma)) {
       int per_sm = 0;
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, p->kernel, kThreads, smem);
       if (e != cudaSuccess) return e;
-      if (blocks < (long)per_sm * sms) continue;
+      const long need = p->mma ? per_sm : std::max(per_sm, 2);
+      if (blocks < need * sms || per_sm < per_sm_min) continue;
     }
     p->cpb = cpb;
     p->smem = smem;
     return cudaSuccess;
   }
-  return cudaErrorInvalidValue;  // not reached: cpb = 8 fits (p->mma)
+  return cudaErrorInvalidValue;  // not reached: cpb = 8 fits (mma, or the tile)
 }
 
 struct SelPlan {
@@ -1099,8 +1441,7 @@ int mpn_sa_select(const float* xyz, const float* cent, int b, int n, int s, floa
 // kp, c1 and c2 must be multiples of 4. w1t, w2t, w3t: the bf16 W^T copies,
 // zero-padded to multiples of 16 (needed for bf16, null for f32). cpb:
 // the MLP kernel's centroids per block, 0 for the plan's choice, else 8, 16
-// or 32 (the tensor-core kernel where it fits; the CUDA-core kernel takes
-// 8 only); another value, or one that does not fit, is refused. Both
+// or 32; another value, or one that does not fit, is refused. Both
 // launches go on `stream`. Returns a cudaError_t.
 int mpn_sa(const float* xyz, const float* feat, const float* cent, const int* chunks,
            int window, const float* w1, const float* w1f, const float* b1, const float* w2,
@@ -1114,7 +1455,7 @@ int mpn_sa(const float* xyz, const float* feat, const float* cent, const int* ch
       (bf16 && !(w1t && w2t && w3t)))
     return (int)cudaErrorInvalidValue;
   Plan p;
-  cudaError_t e = plan(b, s, c, kp, c1, c2, c3, bf16, in_cloud, raw != nullptr, fast, cpb, &p);
+  cudaError_t e = plan(b, s, c, c1, c2, c3, bf16, in_cloud, raw != nullptr, fast, cpb, &p);
   if (e != cudaSuccess) return (int)e;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!fast && select) {
@@ -1123,26 +1464,30 @@ int mpn_sa(const float* xyz, const float* feat, const float* cent, const int* ch
   }
   SaArgs a{xyz, feat, cent, chunks, w1, w1f, b1, w2, b2, w3, b3, w1t, w2t, w3t, out, idx,
            fast ? nullptr : count, raw, n, s, c, kp, c1, c2, c3, window, bf16,
-           round16(3 + c), round16(c1), round16(c2), round16(c3), r2, p.cpb};
+           round16(3 + c), round16(c1), round16(c2), round16(c3), r2, p.cpb, p.rows};
   p.kernel<<<dim3((s + p.cpb - 1) / p.cpb, b), kThreads, p.smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
 // The MLP launch mpn_sa makes for b rows of s centroids at these widths and
 // options, with cpb as mpn_sa takes it: *mma 1 for the tensor-core kernel,
-// its dynamic shared memory in bytes, the blocks of it that fit on one SM
-// and its centroids per block. Returns a cudaError_t.
-int mpn_sa_plan(int b, int s, int c, int kp, int c1, int c2, int c3, int bf16, int in_cloud,
-                int raw, int fast, int cpb, int* mma, int* smem, int* blocks_per_sm,
-                int* cpb_out) {
+// its dynamic shared memory in bytes, the blocks of it that fit on one SM,
+// its centroids per block, its rows per tile and (CUDA-core kernel) the
+// output rows a thread owns, 4 or 8 (0 on the tensor cores). Returns a
+// cudaError_t.
+int mpn_sa_plan(int b, int s, int c, int c1, int c2, int c3, int bf16, int in_cloud, int raw,
+                int fast, int cpb, int* mma, int* smem, int* blocks_per_sm, int* cpb_out,
+                int* rows_out, int* tr_out) {
   Plan p{};
-  cudaError_t e = plan(b, s, c, kp, c1, c2, c3, bf16, in_cloud, raw, fast, cpb, &p);
+  cudaError_t e = plan(b, s, c, c1, c2, c3, bf16, in_cloud, raw, fast, cpb, &p);
   if (e == cudaSuccess) {
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, p.kernel, kThreads, p.smem);
   }
   *mma = p.mma;
   *smem = (int)p.smem;
   *cpb_out = p.cpb;
+  *rows_out = p.rows;
+  *tr_out = p.tr;
   return (int)e;
 }
 

@@ -19,9 +19,11 @@ Port of ``mpinets_tpu/kernels/pallas_ops.py``:
 
 The SA stages take their MLP as :class:`SAWeights`, rounded and laid out
 for the kernel once by :func:`prepare_sa_weights`. Under bf16 the kernel
-runs the MLP on the tensor cores from the bf16 copies there, 8, 16 or 32
+runs the MLP on the tensor cores from the bf16 copies there; under f32 on
+the CUDA cores (register-tiled f32 FFMA over tiles of 128 packed rows, the
+weights streamed through shared memory). Both pack 8, 16 or 32
 centroids a block (:func:`sa_launch_plan` says which kernel a stage gets,
-and its centroids per block).
+its centroids per block and rows per tile).
 
 A wrapper given CPU tensors computes the plain version, which repeats the
 kernel's arithmetic (the raw-row layer 1 with the folded recentring bias,
@@ -77,8 +79,8 @@ FPS_MAX_POINTS = 8192
 #: Largest cloud the ball-query kernel stages in shared memory (x, y, z f32:
 #: 192 KB, one block per SM; 75 KB and two or more at the 6272-point cloud).
 SELECT_MAX_POINTS = 16384
-#: Centroids per block the tensor-core SA MLP kernel takes (the CUDA-core
-#: kernel takes 8 only); its launch plan picks one (:func:`sa_launch_plan`).
+#: Centroids per block the SA MLP kernels take (the tensor-core one and the
+#: CUDA-core one); the launch plan picks one (:func:`sa_launch_plan`).
 SA_CENTROIDS_PER_BLOCK = (8, 16, 32)
 
 #: Kernel launches since the last :func:`reset_launches`, by wrapper.
@@ -99,7 +101,7 @@ _SIGNATURES = {
     "mpn_fps_plan": [_I] * 6 + [_P] * 3,
     "mpn_sa": ([_P] * 4 + [_I] + [_P] * 10 + [_I] * 8 + [ctypes.c_float, _I, _I] + [_P] * 4
                + [_I, _I, _P]),
-    "mpn_sa_plan": [_I] * 12 + [_P] * 4,
+    "mpn_sa_plan": [_I] * 11 + [_P] * 6,
     "mpn_sa_select": [_P, _P, _I, _I, _I, ctypes.c_float, _P, _P, _P],
     "mpn_sa_select_plan": [_I] * 3 + [_P] * 3,
     "mpn_probe_scan": [_P] * 3 + [_I] * 3 + [ctypes.c_float, _I, _P, _P],
@@ -694,20 +696,24 @@ def sa_launch_plan(weights: SAWeights, c: int, b: int, s: int, in_cloud: bool = 
     the window-scan instantiation; ``centroids_per_block`` as
     :func:`sa_kernel` takes it): ``mma`` 1 for the tensor-core kernel
     (bf16), 0 for the CUDA-core one; its dynamic shared memory in bytes; the
-    blocks of it that fit on one SM; and ``cpb``, its centroids per block.
-    Raises where the kernel does not take ``centroids_per_block``."""
+    blocks of it that fit on one SM; ``cpb``, its centroids per block; and
+    ``tile_rows``, its rows per tile (16 on the tensor cores; 128 or 32 on
+    the CUDA cores); and ``thread_rows``, the output rows a thread of the
+    CUDA-core kernel owns (4 or 8; 0 on the tensor cores). Raises where the
+    kernel does not take
+    ``centroids_per_block``, or where no tile of the CUDA-core kernel fits."""
     _check_cpb(centroids_per_block)
-    kp, c1 = weights.w1.shape
-    c2, c3 = weights.w2.shape[1], weights.w3.shape[1]
-    out = [ctypes.c_int() for _ in range(4)]
-    rc = _library("sa").mpn_sa_plan(b, s, c, kp, c1, c2, c3,
+    c1, c2, c3 = weights.w1.shape[1], weights.w2.shape[1], weights.w3.shape[1]
+    out = [ctypes.c_int() for _ in range(6)]
+    rc = _library("sa").mpn_sa_plan(b, s, c, c1, c2, c3,
                                     int(weights.compute_dtype == torch.bfloat16), int(in_cloud),
                                     int(raw), int(fast), centroids_per_block or 0,
                                     *map(ctypes.byref, out))
     if rc != 0:
         raise RuntimeError(f"mpn_sa_plan failed: CUDA error {rc} (centroids_per_block="
                            f"{centroids_per_block})")
-    return dict(zip(("mma", "smem_bytes", "blocks_per_sm", "cpb"), (v.value for v in out)))
+    return dict(zip(("mma", "smem_bytes", "blocks_per_sm", "cpb", "tile_rows", "thread_rows"),
+                    (v.value for v in out)))
 
 
 def sa_select_plan(b: int, n: int, s: int) -> Dict[str, int]:

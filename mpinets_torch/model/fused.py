@@ -103,6 +103,7 @@ def fused_policy_apply(
     sa_impl: str = "v8",
     bf16_cloud: bool = False,
     weights=None,
+    fps_impl: str = "v1",
 ) -> torch.Tensor:
     """Delta-q prediction, numerically equivalent to ``model(xyz, q)``.
 
@@ -117,7 +118,10 @@ def fused_policy_apply(
     and returns bf16 coordinates) and for the fast SA0's window choice, as
     ``mpinets_tpu/model/fused.py:100-103`` does; the SA stages and the tail
     read those rounded coordinates as f32, as the TPU kernels' f32 planes
-    and centroid tables do (``pallas_ops.py:1263,1409,1444``).
+    and centroid tables do (``pallas_ops.py:1263,1409,1444``). ``fps_impl``
+    ("v1" or "v2") names the TPU FPS kernel both FPS calls stand for, as
+    ``mpinets_tpu/model/fused.py:109,132`` pass it; both launch the same
+    CUDA kernel and give the same picks.
     """
     cdt = compute_dtype
     w0, w1 = sa_weights(model, cdt) if weights is None else weights
@@ -129,20 +133,20 @@ def fused_policy_apply(
     exact = dict(impl=sa_impl, centroids_in_cloud=sa_impl in ("v5", "v8"))
     sa0, sa1 = stage_sizes(model)
 
-    _, cent0 = ops.furthest_point_sample_with_coords(xyz, sa_npoints[0])
+    _, cent0 = ops.furthest_point_sample_with_coords(xyz, sa_npoints[0], impl=fps_impl)
     if fast_grouping:
         f0, _ = ops.sa_stage_fast(xyz, feat, cent0, w0, **sa0, window=fast_grouping)
     else:
         f0, _ = ops.sa_stage(xyz.float(), feat, cent0.float(), w0, **sa0, **exact)
 
-    _, cent1 = ops.furthest_point_sample_with_coords(cent0, sa_npoints[1])
+    _, cent1 = ops.furthest_point_sample_with_coords(cent0, sa_npoints[1], impl=fps_impl)
     f1, _ = ops.sa_stage(cent0.float(), f0, cent1.float(), w1, **sa1, **exact)
     return tail(model, cent1.float(), f1, q_norm, cdt)
 
 
 def make_fused_apply(compute_dtype=torch.bfloat16, sa_npoints: tuple = (512, 128),
                      fast_grouping: int = 0, sa_impl: str = "v8",
-                     bf16_cloud: bool = False):
+                     bf16_cloud: bool = False, fps_impl: str = "v1"):
     """(model, xyz, q) -> dq with the knobs bound, for the rollout engine.
     The SA weights are made once per model (:func:`sa_weights`) and made
     again only when the model's SA parameters change."""
@@ -157,7 +161,7 @@ def make_fused_apply(compute_dtype=torch.bfloat16, sa_npoints: tuple = (512, 128
         return fused_policy_apply(
             model, point_cloud, q_norm, compute_dtype=compute_dtype,
             sa_npoints=sa_npoints, fast_grouping=fast_grouping, sa_impl=sa_impl,
-            bf16_cloud=bf16_cloud, weights=made["weights"],
+            bf16_cloud=bf16_cloud, weights=made["weights"], fps_impl=fps_impl,
         )
 
     return apply

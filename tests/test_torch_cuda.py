@@ -1,9 +1,8 @@
 """The hand-written CUDA kernels against their plain versions, on the card.
 
 Every kernel test here is marked ``cuda`` and skips without a CUDA device:
-a CUDA kernel has no interpret mode. Two unmarked tests check, on the CPU,
-that the inputs built for the tensor-core SA kernel do what they are built
-for. The file imports no JAX, so it also runs on a machine without it:
+a CUDA kernel has no interpret mode. Unmarked tests check, on the CPU, that
+the inputs built for the SA kernels' tiles do what they are built for. The file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -p no:cacheprovider
 
@@ -11,7 +10,7 @@ Tolerances: FPS indices and coordinates exact (the distance code is never
 contracted into FMAs), for every class of launch plan; SA index arrays and
 raw blocks exact; SA features 1e-5 in f32 (sums in another order) and 1e-2
 in bf16 (one bf16 ulp of an activation; relative to max(1, max|f|) in the
-tensor-core cases); the fused
+tensor-core and CUDA-core cases); the fused
 train path's f32 parameter gradients, kernels against plain versions,
 atol 2e-5 + 1e-4 max|g| (``test_fused_train.py``); the TPU probe kernels
 (``csrc/probes.cu``) bit-equal to their plain versions, which round and sum
@@ -376,11 +375,17 @@ def test_sa_mma_bit_equal_across_centroids_per_block(cuda, variant, widths):
 @pytest.mark.cuda
 def test_sa_centroids_per_block_outside_the_set_or_beyond_shared_memory_raises(cuda):
     """An override outside {8, 16, 32} raises before any launch; one the
-    kernel does not take (SA1's bf16 widths at 32, the CUDA-core kernel at
-    16 or 32) raises from the plan and from the launch, never falls back."""
-    for widths, dtype, refused in (("sa1", torch.bfloat16, (32,)),
-                                   ("sa0", torch.float32, (16, 32))):
-        args = _stage_args(_spread_case(widths, 25), cuda, dtype)
+    kernel does not take (SA1's bf16 widths at 32 on the tensor cores; on
+    the CUDA cores, f32 widths whose max-pool rows leave no room for 32
+    centroids: C3 = 1536) raises from the plan and from the launch, never
+    falls back. The CUDA-core kernel takes what CC_FITTING_CPB lists at
+    SA0 and SA1, and refuses the rest."""
+    cases = (
+        (_stage_args(_spread_case("sa1", 25), cuda, torch.bfloat16), (32,)),
+        (_stage_args(_sa_inputs(25, b=2, n=600, s=20, c=64, widths=(128, 128, 1536)), cuda,
+                     torch.float32), (32,)),
+    )
+    for args, refused in cases:
         b, _, c = args[1].shape
         s = args[2].shape[1]
         for cpb in (0, 4, 12, 64):
@@ -396,6 +401,16 @@ def test_sa_centroids_per_block_outside_the_set_or_beyond_shared_memory_raises(c
                 ops.sa_kernel(*args, SPREAD_R, centroids_per_block=cpb)
             assert ops.LAUNCHES == before
         assert ops.sa_launch_plan(args[3], c, b, s, centroids_per_block=8)["cpb"] == 8
+    for widths in ("sa0", "sa1"):
+        args = _stage_args(_spread_case(widths, 25), cuda, torch.float32)
+        b, _, c = args[1].shape
+        for cpb in ops.SA_CENTROIDS_PER_BLOCK:
+            if cpb not in CC_FITTING_CPB[widths]:
+                with pytest.raises(RuntimeError):
+                    ops.sa_launch_plan(args[3], c, b, args[2].shape[1], centroids_per_block=cpb)
+                continue
+            plan = ops.sa_launch_plan(args[3], c, b, args[2].shape[1], centroids_per_block=cpb)
+            assert (plan["mma"], plan["cpb"]) == (0, cpb), plan
 
 
 @pytest.mark.cuda
@@ -418,10 +433,13 @@ def test_sa_launch_plan_takes_more_centroids_per_block_at_large_batch(cuda):
 @pytest.mark.cuda
 def test_sa_bf16_beyond_shared_memory_takes_the_cuda_core_kernel(cuda):
     """Widths whose bf16 weights do not fit in shared memory: the CUDA-core
-    kernel, in bf16, against plain."""
+    kernel, in bf16, at 32-row tiles of 4 rows a thread (larger ones do not
+    fit beside 512-wide layers), against plain, and bit-equal under 8, 16
+    and 32 centroids a block."""
     args = _sa_inputs(20, b=2, n=600, s=20, c=64, widths=(512, 512, 64))
     w = _stage_args(args, cuda)[3]
-    assert ops.sa_launch_plan(w, 64, 2, 20)["mma"] == 0
+    plan = ops.sa_launch_plan(w, 64, 2, 20)
+    assert (plan["mma"], plan["tile_rows"], plan["thread_rows"]) == (0, 32, 4), plan
     feats, idx = ops.sa_stage(*_stage_args(args, cuda), radius=0.3, impl="v8",
                               centroids_in_cloud=True)
     torch.cuda.synchronize()
@@ -430,6 +448,151 @@ def test_sa_bf16_beyond_shared_memory_takes_the_cuda_core_kernel(cuda):
     np.testing.assert_array_equal(idx.cpu().numpy(), ref_idx.numpy())
     scale = max(1.0, ref.abs().max().item())
     assert (feats.cpu() - ref).abs().max().item() <= 1e-2 * scale
+    for cpb in ops.SA_CENTROIDS_PER_BLOCK:
+        out = _kernel_variant("sa", _stage_args(args, cuda), 0.3, cpb)
+        assert torch.equal(out[0], feats) and torch.equal(out[1], idx), cpb
+
+
+# ---------------------------------------------------------------------------
+# The CUDA-core SA MLP (f32; bf16 beyond the tensor cores' shared memory):
+# every instantiation, packed rows across the row tiles' edges, every cpb
+# ---------------------------------------------------------------------------
+
+# 33 centroids whose counts hold 0, 1, tile - 1, tile, tile + 1 and 128 (and
+# beyond) for 64- and 128-row tiles, ordered so that packing them, block by
+# block of 8, 16 and 32 centroids, puts tile edges both inside a centroid's
+# rows and between two centroids (test_spread_tiles_puts_row_tile_edges_
+# inside_and_between_centroids)
+SPREAD_TILES = (1, 63, 0, 65, 60, 0, 0, 128, 127, 1, 64, 1, 2, 17, 31, 1, 64, 63, 200, 1, 0,
+                13, 62, 64, 1, 2, 127, 128, 33, 65, 5, 129, 3)
+# the CUDA-core kernel's tile at each width: 128 rows, 4 a thread where
+# every layer is at most 64 wide, else 8 a thread
+CC_TILE = {"sa0": (128, 4), "sa1": (128, 8), "odd": (128, 4)}
+# centroids per block the CUDA-core kernel takes at each width: SA1's
+# 128-row tiles and weight slices leave no room for 32 centroids
+CC_FITTING_CPB = {"sa0": (8, 16, 32), "sa1": (8, 16)}
+
+
+def _check_cc(cuda, variant, args, radius, dtype=torch.float32):
+    """CUDA-core kernel against plain: the kernel the plan names is the one
+    launched, idx equal, raw bit-equal, features within 1e-5 (f32) x max(1,
+    max|f|). -> the launch plan."""
+    w = _stage_args(args, cuda, dtype)[3]
+    b, _, c = args[1].shape
+    plan = ops.sa_launch_plan(w, c, b, args[2].shape[1], variant != "sa_v3", variant == "sa_raw",
+                              variant == "sa_fast")
+    assert plan["mma"] == 0, plan
+    counter = ops.mlp_launch_name(variant, dtype)
+    before = ops.LAUNCHES[counter]
+    out = _variant(variant, args, cuda, radius, dtype)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[counter] == before + 1
+    ref = _variant(variant, args, "cpu", radius, dtype)
+    np.testing.assert_array_equal(out[1].cpu().numpy(), ref[1].numpy())
+    if variant == "sa_raw":
+        assert torch.equal(out[2].cpu(), ref[2])
+    scale = max(1.0, ref[0].abs().max().item())
+    err = (out[0].cpu() - ref[0]).abs().max().item()
+    assert err <= 1e-5 * scale, (err, scale)
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", sorted(WIDTHS))
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_sa_cuda_core_matches_plain(cuda, variant, widths):
+    """Every instantiation of the CUDA-core kernel, f32, at SA0, SA1 and
+    odd widths (C3 = 40: columns past the layer in the last pass)."""
+    c, mlp, radius = WIDTHS[widths]
+    args = _sa_inputs(27, b=2, n=900, s=45, c=c, widths=mlp)
+    if variant == "sa_v3":
+        args[2][:, 3:11] += 0.011
+        args[2][:, 20] = torch.tensor([5.0, 5.0, 5.0])   # no neighbour: point 0's row
+    plan = _check_cc(cuda, variant, args, radius)
+    assert (plan["tile_rows"], plan["thread_rows"]) == CC_TILE[widths], plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", sorted(SPREADS))
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_sa_cuda_core_counts_across_row_tile_edges(cuda, variant, masked, widths):
+    """Counts of 0, 1, tile - 1, tile, tile + 1 and 128 with row tiles
+    starting inside and between centroids, f32; ``masked``: rows past the
+    count would win the max-pool if they entered it."""
+    _check_cc(cuda, variant, _spread_case(widths, 28 + masked, masked, SPREAD_TILES), SPREAD_R)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", sorted(SPREADS))
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_sa_cuda_core_bit_equal_across_centroids_per_block(cuda, variant, widths):
+    """f32: idx, raw block and features bit-equal under every number of
+    centroids a block the kernel takes (a row's sums do not depend on its
+    tile), on the count spread across the row tiles' edges; one it does not
+    take raises."""
+    args = _stage_args(_spread_case(widths, 30, counts=SPREAD_TILES), cuda, torch.float32)
+    b, _, c = args[1].shape
+    outs = {}
+    for cpb in ops.SA_CENTROIDS_PER_BLOCK:
+        plan_args = (args[3], c, b, args[2].shape[1], variant != "sa_v3", variant == "sa_raw",
+                     variant == "sa_fast", cpb)
+        if cpb not in CC_FITTING_CPB[widths]:
+            with pytest.raises(RuntimeError):
+                ops.sa_launch_plan(*plan_args)
+            with pytest.raises(RuntimeError):
+                _kernel_variant(variant, args, SPREAD_R, cpb)
+            continue
+        plan = ops.sa_launch_plan(*plan_args)
+        assert (plan["mma"], plan["cpb"]) == (0, cpb), plan
+        assert (plan["tile_rows"], plan["thread_rows"]) == CC_TILE[widths], plan
+        outs[cpb] = _kernel_variant(variant, args, SPREAD_R, cpb)
+    torch.cuda.synchronize()
+    for cpb, out in outs.items():
+        for got, want in zip(out, outs[8]):
+            assert torch.equal(got, want), (cpb, (got != want).sum().item())
+
+
+@pytest.mark.cuda
+def test_sa_cuda_core_launch_plan(cuda):
+    """f32 at the main paths' batches: the CUDA-core kernel, 128-row tiles
+    of 4 rows a thread at SA0 and of 8 at SA1, more than 8 centroids a block
+    at SA0 B=256, two blocks a SM at SA0, and never fewer blocks a SM than
+    at 8 centroids a block."""
+    cases = {"sa0": (1, (64, 64, 64), 512), "sa1": (64, (128, 128, 256), 128)}
+    for name, (c, mlp, s) in cases.items():
+        w = _stage_args(_sa_inputs(31, b=1, n=200, s=8, c=c, widths=mlp), cuda,
+                        torch.float32)[3]
+        for b in (1, 3, 32, 256):
+            for fast in (False, True):
+                plan = ops.sa_launch_plan(w, c, b, s, fast=fast)
+                assert plan["mma"] == 0, plan
+                assert (plan["tile_rows"], plan["thread_rows"]) == CC_TILE[name], plan
+                at8 = ops.sa_launch_plan(w, c, b, s, fast=fast, centroids_per_block=8)
+                assert plan["blocks_per_sm"] >= max(at8["blocks_per_sm"], 2 if name == "sa0" else 1)
+        if name == "sa0":
+            assert ops.sa_launch_plan(w, c, 256, s)["cpb"] > 8
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("cpb", ops.SA_CENTROIDS_PER_BLOCK)
+def test_spread_tiles_puts_row_tile_edges_inside_and_between_centroids(cpb, tile):
+    """CPU: packing SPREAD_TILES' rows, max(min(count, 128), 1) a centroid,
+    block by block of cpb centroids, puts the edges of row tiles both
+    inside a centroid's rows and between two centroids; and the input keeps
+    each count (128 at most) under the plain ball query."""
+    inside = between = 0
+    for b0 in range(0, len(SPREAD_TILES), cpb):
+        nrows = [max(min(k, 128), 1) for k in SPREAD_TILES[b0:b0 + cpb]]
+        off = np.cumsum([0] + nrows)
+        for edge in range(tile, off[-1], tile):
+            between += edge in off
+            inside += any(o < edge < o + n for o, n in zip(off, nrows))
+    assert inside > 0 and between > 0, (inside, between)
+    assert {0, 1, tile - 1, tile, tile + 1, 128} <= set(SPREAD_TILES)
+    xyz, _, cent = _spread_case("sa1", 28, counts=SPREAD_TILES)[:3]
+    _, count = ops.sa_select_plain(xyz, cent, SPREAD_R)
+    assert count.tolist() == [[min(k, 128) for k in SPREAD_TILES]] * 2
 
 
 @pytest.mark.parametrize("widths", sorted(SPREADS))

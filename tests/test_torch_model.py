@@ -173,6 +173,30 @@ def test_bf16_cloud_matches_pallas_interpret(flax_and_port, fast):
     np.testing.assert_array_equal(c.float().numpy(), np.asarray(jc.astype(jnp.float32)))
 
 
+def test_fps_impl_v2_matches_v1_and_the_jax_fused_forward(flax_and_port):
+    """``fps_impl="v2"`` reaches both FPS calls (as
+    ``mpinets_tpu/model/fused.py:109,132``): it equals v1 and the JAX
+    fused forward with ``fps_impl="v2"`` in interpret mode, f32, at the f32
+    forward tolerance (atol 2e-5, rtol 1e-4)."""
+    from mpinets_tpu.model.fused import fused_policy_apply as jax_fused
+
+    _, variables, model = flax_and_port
+    pc, q = _inputs(7)
+    v1 = fused_policy_apply(model, torch.from_numpy(pc), torch.from_numpy(q),
+                            compute_dtype=torch.float32, sa_npoints=NPOINTS)
+    v2 = fused_policy_apply(model, torch.from_numpy(pc), torch.from_numpy(q),
+                            compute_dtype=torch.float32, sa_npoints=NPOINTS, fps_impl="v2")
+    assert torch.equal(v1, v2)
+    apply = make_fused_apply(torch.float32, sa_npoints=NPOINTS, fps_impl="v2")
+    assert torch.equal(apply(model, torch.from_numpy(pc), torch.from_numpy(q)), v2)
+    ref = jax_fused(variables, jnp.asarray(pc), jnp.asarray(q), compute_dtype=jnp.float32,
+                    interpret=True, sa_npoints=NPOINTS, fps_impl="v2")
+    np.testing.assert_allclose(v2.numpy(), np.asarray(ref), atol=2e-5, rtol=1e-4)
+    with pytest.raises(ValueError, match="FPS impl"):
+        fused_policy_apply(model, torch.from_numpy(pc), torch.from_numpy(q),
+                           compute_dtype=torch.float32, sa_npoints=NPOINTS, fps_impl="v9")
+
+
 def test_entry_points_need_cuda_unless_asked_for_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

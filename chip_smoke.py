@@ -31,7 +31,11 @@ made from a seed, each path a user calls: the planning server
 B=10 and B=64: steps, validation, checkpoints, a restore, then at least
 ``TRAIN_MIN_S`` seconds of timed steps in chunks, reported as the median
 and range of the chunks' rates; and once at a small cloud, which runs the
-kernels as well). Last it drives the TPU probe session
+kernels as well), ``cli.infer`` in five modes, and scene generation: the
+batched IK (``kernels.ik``) on the card against the CPU with the same
+draws, captured in a CUDA graph (no host sync) and timed at 320 and 4,096
+targets x 16 seeds, then 4 scenes of each environment (``envs``), every
+candidate re-checked on the CPU. Last it drives the TPU probe session
 (``mpinets_torch.probes.session``, what ``python -m mpinets_torch.probes``
 runs): each probe kernel of ``csrc/probes.cu`` against its plain version at
 the scripts' full shapes and on the scan's edge cases, then timed by the
@@ -797,6 +801,243 @@ def run_evaluation(model, smi, count_path):
     return summary
 
 
+# ---- scene generation: batched IK and the procedural environments ---------
+SCENES_PER_ENV = 4        # scenes per environment, from numpy seed 0
+IK_SEEDS = 16             # seeds per target, as the environments solve
+IK_EDGE = 1e-5            # flags are compared, and candidates re-checked, this far from the
+                          # IK tolerances (the f32 arccos at ORI_TOL)
+IK_FLAG_SHARE = 0.97      # end to end, card flags equal to the CPU's on this share of the
+                          # targets: 30 DLS steps from random seeds round apart (see below)
+IK_SCORE_TIE = 1e-4       # a pick ties the best seed within this much of pos + 0.1 ori
+IK_STEP_F64_TOL = 1e-8    # residual, Jacobian and one DLS step, card vs CPU, in f64
+IK_TIMED = (320, 4096)    # targets of the timed IK calls (x IK_SEEDS DLS solves)
+
+
+def near_tolerance(pos, ori):
+    from mpinets_torch.kernels import ik
+
+    return ((pos - ik.POS_TOL).abs() < IK_EDGE) | ((ori - ik.ORI_TOL).abs() < IK_EDGE)
+
+
+def recheck_candidates(cands, scene_cpu, free_margin=None):
+    """Re-check candidates made on the card, on the CPU: each configuration
+    reaches its pose within the IK tolerances (+ IK_EDGE) and, where a
+    margin is given, clears the scene and itself by it (- IK_EDGE)."""
+    import numpy as np
+    import torch
+
+    from mpinets_torch.kernels import ik
+
+    if not cands:
+        return
+    q = torch.as_tensor(np.stack([c.config for c in cands]), dtype=torch.float32)
+    rot = torch.as_tensor(np.stack([c.pose.matrix[:3, :3] for c in cands]), dtype=torch.float32)
+    trans = torch.as_tensor(np.stack([c.pose.position for c in cands]), dtype=torch.float32)
+    pos, ori = ik.pose_errors(q, rot, trans)
+    if not (bool((pos < ik.POS_TOL + IK_EDGE).all()) and bool((ori < ik.ORI_TOL + IK_EDGE).all())):
+        raise AssertionError(f"a candidate misses its pose on the CPU: {pos.max()}, {ori.max()}")
+    if free_margin is not None and not bool(
+            ik.franka_free_space(q, scene_cpu, free_margin - IK_EDGE).all()):
+        raise AssertionError("a candidate collides on the CPU")
+
+
+def run_scene_generation(smi):
+    """Scene and candidate generation on the card (``mpinets_torch.envs``
+    through ``kernels.ik``): the IK card against the CPU on one batch of 320
+    tabletop poses with the same draws; IK throughput, each call also
+    captured in a CUDA graph (no host sync) and its replay timed; then
+    SCENES_PER_ENV scenes of each environment with the CPU re-check of every
+    candidate. -> summary."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpinets_torch import envs
+    from mpinets_torch.geom.scene import SceneSet
+    from mpinets_torch.kernels import ik
+
+    dev = torch.device("cuda")
+    summary = {}
+
+    # -- the IK, card against CPU, on one batch of scene-sampled poses --------
+    rng = np.random.default_rng(SEED)
+    env = envs.TabletopEnvironment(device=dev)
+    while not env.gen(rng):
+        pass
+    scene, scene_cpu = env._unbatched_scene(), SceneSet(*(t.cpu() for t in env._unbatched_scene()))
+    poses = env.sample_candidate_poses(rng, max(IK_TIMED))
+    rot_all = torch.as_tensor(np.stack([p.matrix[:3, :3] for p in poses]), dtype=torch.float32)
+    trans_all = torch.as_tensor(np.stack([p.position for p in poses]), dtype=torch.float32)
+    rot, trans = rot_all[:IK_TIMED[0]], trans_all[:IK_TIMED[0]]
+    b = rot.shape[0]
+    key = int(rng.integers(0, 2**31 - 1))
+    u = ik.draw_uniforms(key, IK_SEEDS, b)
+    seeds = ik.seeds_from_draws(u)
+    if not torch.equal(ik.seeds_from_draws(ik.draw_uniforms(key, IK_SEEDS, b, dev)).cpu(), seeds):
+        raise AssertionError("IK: the seeds on the card differ from the CPU's")
+
+    # the formulas in f64: residual, Jacobian and one DLS step from the seeds,
+    # the [S, B] pairs flat
+    flat = (seeds.double().reshape(-1, 7),
+            rot.double().expand(IK_SEEDS, b, 3, 3).reshape(-1, 3, 3),
+            trans.double().expand(IK_SEEDS, b, 3).reshape(-1, 3))
+    e_c, j_c = ik.residual_and_jacobian(*flat)
+    e_g, j_g = ik.residual_and_jacobian(*(t.to(dev) for t in flat))
+    step_c, step_g = ik.dls_step(*flat), ik.dls_step(*(t.to(dev) for t in flat))
+    f64_err = max(float((e_g.cpu() - e_c).abs().max()), float((j_g.cpu() - j_c).abs().max()),
+                  float((step_g.cpu() - step_c).abs().max()))
+    log(f"IK, card vs CPU in f64 on {IK_SEEDS} x {b} seeds: residual, Jacobian and one DLS "
+        f"step within {f64_err:.3g} (gate {IK_STEP_F64_TOL})")
+    if not f64_err <= IK_STEP_F64_TOL:
+        raise AssertionError(f"IK: card and CPU differ by {f64_err} in f64")
+
+    # acceptance and selection on the same per-seed solutions (the CPU's)
+    qs = ik.dls_solve(seeds, rot, trans)
+    pos, ori = ik.pose_errors(qs, rot, trans)
+    ok_s = (pos < ik.POS_TOL) & (ori < ik.ORI_TOL) & ik.franka_free_space(qs, scene_cpu)
+    score = pos + 0.1 * ori + torch.where(ok_s, 0.0, 1e6)   # collision_free_ik's ranking
+    best = score.argmin(0)
+    cols = torch.arange(b)
+    with mock.patch.object(ik, "dls_solve", lambda *a, **k: qs.to(dev)):
+        got = [t.cpu() for t in ik.collision_free_ik(None, rot.to(dev), trans.to(dev), scene,
+                                                     draws=u.to(dev))]
+    pick = (qs == got[0][None]).all(-1).float().argmax(0)
+    if not bool((qs[pick, cols] == got[0]).all()):
+        raise AssertionError("IK: a card pick is none of the seeds' solutions")
+    pos_b, ori_b = ik.pose_errors(qs[best, cols], rot, trans)
+    away = ~near_tolerance(pos_b, ori_b) & ~near_tolerance(got[2], got[3])
+    low = score[best, cols]
+    tie = low + IK_SCORE_TIE + torch.where(low >= 1e6, 0.0625, 0.0)
+    if not (torch.equal(got[1][away], ok_s[best, cols][away]) and bool((score[pick, cols] <= tie).all())):
+        raise AssertionError("IK: acceptance or selection on the card differs from the CPU's")
+    log(f"IK acceptance and selection on the CPU's per-seed solutions: flags equal on "
+        f"{int(away.sum())} of {b} targets away from the tolerances; every pick within "
+        f"{IK_SCORE_TIE} of the best seed's score; the same seed picked for "
+        f"{int((pick == best).sum())}")
+
+    # end to end, card against CPU, on the same integer seed
+    got = [t.cpu() for t in ik.collision_free_ik(key, rot.to(dev), trans.to(dev), scene)]
+    ref = ik.collision_free_ik(key, rot, trans, scene_cpu)
+    away = ~near_tolerance(ref.pos_err, ref.ori_err) & ~near_tolerance(got[2], got[3])
+    share = float((got[1] == ref.converged)[away].float().mean())
+    both = got[1] & ref.converged
+    same_q = int(((got[0] - ref.q).abs().amax(-1) <= 1e-4)[both].sum())
+    log(f"IK end to end, card vs CPU, {b} targets x {IK_SEEDS} seeds: ok {int(got[1].sum())} / "
+        f"{int(ref.converged.sum())}, flags equal on {share:.4f} of the targets away from the "
+        f"tolerances (gate {IK_FLAG_SHARE}); q within 1e-4 on {same_q} of the {int(both.sum())} "
+        f"targets both accept (the others picked another seed, or a seed rounded onto another "
+        f"solution)")
+    if share < IK_FLAG_SHARE:
+        raise AssertionError(f"IK: card and CPU flags agree on {share} of the targets")
+    pos, ori = ik.pose_errors(got[0], rot, trans)
+    if not (bool((pos[got[1]] < ik.POS_TOL + IK_EDGE).all())
+            and bool((ori[got[1]] < ik.ORI_TOL + IK_EDGE).all())
+            and bool(ik.franka_free_space(got[0][got[1]], scene_cpu, -IK_EDGE).all())):
+        raise AssertionError("IK: a solution the card accepts fails on the CPU")
+    summary["card_vs_cpu"] = {"targets": b, "ok_card": int(got[1].sum()),
+                              "ok_cpu": int(ref.converged.sum()), "flags_equal_share": share,
+                              "q_within_1e-4": same_q, "both_ok": int(both.sum()),
+                              "f64_step_err": f64_err}
+
+    # -- throughput, and no host sync inside a call ----------------------------
+    # A call captures into a CUDA graph: a host sync while capturing raises.
+    # (Queued behind a busy card, a call still blocks the host once its
+    # thousands of launches fill the launch queue, so "returned while the
+    # card was busy" is no test of it.) The graph's replay times the same
+    # call without the host's launches.
+    rates = {}
+    for n in IK_TIMED:
+        args = (rot_all[:n].to(dev), trans_all[:n].to(dev), scene)
+        times = []
+        for rep in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = ik.collision_free_ik(key + rep, *args)
+            res.converged.cpu()
+            times.append(time.perf_counter() - t0)
+        t = float(np.median(times[1:]))
+        draws = ik.draw_uniforms(key, IK_SEEDS, n, dev)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):   # the warm-up capture asks for, off the default stream
+            eager = ik.collision_free_ik(None, *args, draws=draws)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = ik.collision_free_ik(None, *args, draws=draws)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(eager, captured)):
+            raise AssertionError(f"collision_free_ik ({n}): the graph's replay differs")
+        replay = cuda_ms(graph.replay, 3)
+        del graph, captured
+        rates[n] = {"s": t, "targets_per_s": n / t, "dls_solves_per_s": n * IK_SEEDS / t,
+                    "times_s": times[1:], "graph_replay_ms": replay}
+        log(f"collision_free_ik, {n} targets x {IK_SEEDS} seeds, 30 DLS steps: median "
+            f"{t * 1e3:.2f} ms ({', '.join(f'{x * 1e3:.2f}' for x in times[1:])}), "
+            f"{n / t:.1f} targets/s, {n * IK_SEEDS / t:.1f} DLS solves/s; captured in a CUDA "
+            f"graph (no host sync), its replay {replay:.2f} ms, equal to the call [{smi}]")
+    summary["ik"] = rates
+
+    # -- the four environments ---------------------------------------------
+    for name, cls in envs.ENVIRONMENTS.items():
+        rng = np.random.default_rng(SEED)
+        stats = {"scenes": 0, "kept": 0, "gen_s": 0.0, "candidates_s": 0.0}
+        for _ in range(SCENES_PER_ENV):
+            env = cls(device=dev)
+            t0 = time.perf_counter()
+            kept = env.gen(rng)
+            stats["gen_s"] += time.perf_counter() - t0
+            stats["scenes"] += 1
+            if not kept:
+                continue
+            stats["kept"] += 1
+            if len(env.demo_candidates) != 2:
+                raise AssertionError(f"{name}: {len(env.demo_candidates)} demo candidates")
+            before = dict(env.funnel)
+            t0 = time.perf_counter()
+            extra = env.gen_candidates(rng, 10)
+            neutral = env.gen_neutral_candidates(5, rng)
+            stats["candidates_s"] += time.perf_counter() - t0
+            f = env.funnel
+            delta = {k: f[k] - before[k] for k in f}
+            if not (delta["poses"] == 320 and delta["kept"] == len(extra) <= 10
+                    and delta["ik_solved"] >= delta["free"] >= delta["kept"]
+                    and f["poses"] >= f["ik_solved"] >= f["free"] >= f["kept"] >= 2 + len(extra)):
+                raise AssertionError(f"{name}: the funnel does not add up: {f}, {delta}")
+            scene_cpu = SceneSet(*(t.cpu() for t in env._unbatched_scene()))
+            # demo candidates were solved in the scene as it stood then (a
+            # dresser's start before its target drawer opened): reach only
+            recheck_candidates(env.demo_candidates, scene_cpu)
+            recheck_candidates(extra, scene_cpu, 0.0)
+            recheck_candidates(neutral, scene_cpu, 0.01)
+            stats.setdefault("funnel", []).append(dict(f))
+            stats.setdefault("candidates", []).append([len(extra), len(neutral)])
+        if not stats["kept"]:
+            raise AssertionError(f"{name}: no scene kept of {SCENES_PER_ENV}")
+        stats["scenes_per_s"] = stats["kept"] / stats["gen_s"]
+        log(f"{name}: {stats['kept']} of {stats['scenes']} scenes kept in {stats['gen_s']:.3f} s "
+            f"of gen ({stats['scenes_per_s']:.2f} kept scenes/s, "
+            f"{stats['scenes'] / stats['gen_s']:.2f} attempts/s); gen_candidates(10) + "
+            f"gen_neutral_candidates(5) {stats['candidates_s']:.3f} s in all; [extra, neutral] "
+            f"{stats['candidates']}; funnels {stats['funnel']} [{smi}]")
+        summary[name] = stats
+
+    # -- the device's busy share of one gen_candidates call ------------------
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        env.gen_candidates(rng, 10)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = sum(e.self_device_time_total for e in kernel_rows(prof))
+    summary["gen_candidates_busy_share"] = busy_us / 1e6 / wall
+    log(f"profile of one gen_candidates(10) ({type(env).__name__}, 320 poses x {IK_SEEDS} "
+        f"seeds): wall {wall * 1e3:.1f} ms, device kernel time {busy_us / 1e3:.1f} ms, busy "
+        f"share {busy_us / 1e6 / wall:.3f} [{smi}]")
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -1412,6 +1653,17 @@ def main() -> int:
           "batch-1 timing)")
     eval_summary = run_evaluation(model, smi, count_path)
 
+    # ---- 4c. scene generation: the IK and the environments -----------------
+    phase("scene generation: IK and environments on the card (tabletop, cubby, merged-cubby, "
+          "dresser)")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    scene_summary = run_scene_generation(smi)
+    torch.cuda.synchronize()
+    log(f"scene generation: hand-written kernel launches {dict(ops.LAUNCHES_BY_SHAPE)} (the "
+        f"IK and the environments run none: plain torch, cuSOLVER and cuBLAS); the phase took "
+        f"{time.perf_counter() - t0:.1f} s")
+
     # ---- 5. the TPU probe session ----------------------------------------
     from mpinets_torch.probes import session as probe_session
 
@@ -1479,7 +1731,8 @@ def main() -> int:
     log(json.dumps({"env_steps_per_s_median": rate, "env_steps_per_s": rates, "batch": B,
                     "fast_grouping": FAST_W, "compute_dtype": "bfloat16",
                     "train": {str(k): v for k, v in train_rates.items()},
-                    "evaluation": eval_summary, "card": smi}))
+                    "evaluation": eval_summary, "scene_generation": scene_summary,
+                    "card": smi}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

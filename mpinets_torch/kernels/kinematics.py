@@ -10,6 +10,8 @@ poses. Frames are indexed by :data:`mpinets_torch.robot.franka.FRAMES`.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from mpinets_torch.kernels.rotations import matrix_to_quat
@@ -28,6 +30,14 @@ def _rotz_apply(rot: torch.Tensor, c: torch.Tensor, s: torch.Tensor) -> torch.Te
     return torch.stack([col0, col1, rot[..., 2]], dim=-1)
 
 
+@functools.lru_cache(maxsize=None)
+def franka_table(name: str, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``franka.<name>`` as a tensor on a device, made once per (name,
+    dtype, device): a copy from the host to a card waits for the card, so
+    the kinematics make none per call."""
+    return torch.as_tensor(getattr(franka, name), dtype=dtype, device=device)
+
+
 def fk_frames(q: torch.Tensor, finger_open: float = franka.FINGER_OPEN):
     """All Franka frames for a batch of configurations.
 
@@ -35,7 +45,7 @@ def fk_frames(q: torch.Tensor, finger_open: float = franka.FINGER_OPEN):
     :returns: (rots [..., F, 3, 3], trans [..., F, 3]) where F = NUM_FRAMES.
     """
     kw = dict(dtype=q.dtype, device=q.device)
-    origins = torch.as_tensor(franka.JOINT_ORIGINS, **kw)
+    origins = franka_table("JOINT_ORIGINS", q.dtype, q.device)
     batch_shape = q.shape[:-1]
 
     cos = torch.cos(q)
@@ -55,38 +65,38 @@ def fk_frames(q: torch.Tensor, finger_open: float = franka.FINGER_OPEN):
         rots.append(rot)
         transs.append(trans)
 
-    def _fixed(parent_idx, offset):
-        offset = torch.as_tensor(offset, **kw)
+    def _fixed(parent_idx, name):
+        offset = franka_table(name, q.dtype, q.device)
         p_rot, p_trans = rots[parent_idx], transs[parent_idx]
         t = p_trans + torch.einsum("...ij,j->...i", p_rot, offset[:3, 3])
         r = torch.einsum("...ij,jk->...ik", p_rot, offset[:3, :3])
         return r, t
 
     # panda_link8 (idx 8), panda_hand (9)
-    r8, t8 = _fixed(7, franka.LINK8_OFFSET)
+    r8, t8 = _fixed(7, "LINK8_OFFSET")
     rots.append(r8)
     transs.append(t8)
-    rh, th = _fixed(8, franka.HAND_OFFSET)
+    rh, th = _fixed(8, "HAND_OFFSET")
     rots.append(rh)
     transs.append(th)
 
-    # Fingers: prismatic along +/- y of the hand, mounted at FINGER_MOUNT_Z.
-    mount = torch.tensor([0.0, 0.0, franka.FINGER_MOUNT_Z], **kw)
+    # Fingers: prismatic along +/- y of the hand, mounted at FINGER_MOUNT_Z
+    # along its z axis (rh @ [0, 0, z], whose two zero terms add nothing).
     y_hand = rh[..., :, 1]
-    base_t = th + torch.einsum("...ij,j->...i", rh, mount)
+    z_hand = rh[..., :, 2]
+    base_t = th + z_hand * franka.FINGER_MOUNT_Z
     t_left = base_t + finger_open * y_hand
     t_right = base_t - finger_open * y_hand
     rots.extend([rh, rh])
     transs.extend([t_left, t_right])
 
     # Fingertips: FINGERTIP_Z along the finger (= hand) z axis.
-    z_hand = rh[..., :, 2]
     tip = franka.FINGERTIP_Z * z_hand
     rots.extend([rh, rh])
     transs.extend([t_left + tip, t_right + tip])
 
     # right_gripper
-    rg, tg = _fixed(8, franka.RIGHT_GRIPPER_OFFSET)
+    rg, tg = _fixed(8, "RIGHT_GRIPPER_OFFSET")
     rots.append(rg)
     transs.append(tg)
 
@@ -107,8 +117,8 @@ def eff_pose_quat(q: torch.Tensor):
 
 def _spheres(q: torch.Tensor, frames, centers) -> torch.Tensor:
     rots, transs = fk_frames(q)
-    idx = torch.as_tensor(frames, dtype=torch.long, device=q.device)
-    local = torch.as_tensor(centers, dtype=q.dtype, device=q.device)
+    idx = franka_table(frames, torch.long, q.device)
+    local = franka_table(centers, q.dtype, q.device)
     s_rot = rots.index_select(-3, idx)      # [..., S, 3, 3]
     s_trans = transs.index_select(-2, idx)  # [..., S, 3]
     return torch.einsum("...sij,sj->...si", s_rot, local) + s_trans
@@ -118,14 +128,14 @@ def collision_spheres(q: torch.Tensor) -> torch.Tensor:
     """World-frame centres of the 57-sphere collision model (robofin's
     ``FrankaCollisionSampler.compute_spheres``, used at ``model.py:300-303``).
     q [..., 7] -> [..., 57, 3]; radii are :data:`franka.SPHERE_RADII`."""
-    return _spheres(q, franka.SPHERE_FRAMES, franka.SPHERE_CENTERS)
+    return _spheres(q, "SPHERE_FRAMES", "SPHERE_CENTERS")
 
 
 def scene_collision_spheres(q: torch.Tensor) -> torch.Tensor:
     """The spheres checked against scene geometry: the 57-sphere table
     without the base link (``with_base_link=False``, ``model.py:270``).
     Radii: :data:`franka.SCENE_SPHERE_RADII`."""
-    return _spheres(q, franka.SCENE_SPHERE_FRAMES, franka.SCENE_SPHERE_CENTERS)
+    return _spheres(q, "SCENE_SPHERE_FRAMES", "SCENE_SPHERE_CENTERS")
 
 
 def self_collision(q: torch.Tensor, margin: float = 0.0) -> torch.Tensor:
@@ -134,8 +144,8 @@ def self_collision(q: torch.Tensor, margin: float = 0.0) -> torch.Tensor:
     True when an allowed sphere pair is closer than the sum of its radii
     (+ margin). q [..., 7] -> bool [...]."""
     centers = collision_spheres(q)
-    pairs = torch.as_tensor(franka.SELF_COLLISION_PAIRS, dtype=torch.long, device=q.device)
-    thresh = torch.as_tensor(franka.SELF_COLLISION_THRESH, dtype=q.dtype, device=q.device) + margin
+    pairs = franka_table("SELF_COLLISION_PAIRS", torch.long, q.device)
+    thresh = franka_table("SELF_COLLISION_THRESH", q.dtype, q.device) + margin
     a = centers.index_select(-2, pairs[:, 0])
     b = centers.index_select(-2, pairs[:, 1])
     d2 = ((a - b) ** 2).sum(dim=-1)

@@ -15,7 +15,9 @@ train path's f32 parameter gradients, kernels against plain versions,
 atol 2e-5 + 1e-4 max|g| (``test_fused_train.py``); the TPU probe kernels
 (``csrc/probes.cu``) bit-equal to their plain versions, which round and sum
 as the kernels do; the ball-query kernel's idx and count equal to its plain
-version's.
+version's. The batched IK (plain torch) on the card against the CPU: f64
+residual, Jacobian and one DLS step within 1e-8, flags equal away from the
+tolerances, every accepted solution valid on the CPU within 1e-5.
 """
 
 import numpy as np
@@ -909,3 +911,141 @@ def test_check_trajectories_on_the_card_matches_the_cpu(cuda, name):
             np.testing.assert_array_less(np.abs(card[key] - ref),
                                          1e-4 * np.maximum(1.0, np.abs(ref)) + 1e-30,
                                          err_msg=key)
+
+
+# ---- scene generation: the batched IK and the environments ------------------
+
+def _tabletop_poses(n, seed=0):
+    """A tabletop scene made on the card, n of its candidate poses, and the
+    scene on both devices."""
+    from mpinets_torch import envs
+    from mpinets_torch.geom.scene import SceneSet
+
+    rng = np.random.default_rng(seed)
+    env = envs.TabletopEnvironment(device="cuda")
+    while not env.gen(rng):
+        pass
+    poses = env.sample_candidate_poses(rng, n)
+    rot = torch.as_tensor(np.stack([p.matrix[:3, :3] for p in poses]), dtype=torch.float32)
+    trans = torch.as_tensor(np.stack([p.position for p in poses]), dtype=torch.float32)
+    scene = env._unbatched_scene()
+    return rot, trans, scene, SceneSet(*(t.cpu() for t in scene)), int(rng.integers(0, 2**31 - 1))
+
+
+def _near_tolerance(pos, ori, edge=1e-5):
+    from mpinets_torch.kernels import ik
+
+    return ((pos - ik.POS_TOL).abs() < edge) | ((ori - ik.ORI_TOL).abs() < edge)
+
+
+@pytest.mark.cuda
+def test_ik_on_the_card_matches_the_cpu(cuda):
+    """The IK on the card against the CPU on 64 tabletop poses x 16 seeds,
+    the same draws (``chip_smoke.py``'s scene phase holds 320): the seeds
+    equal; residual, Jacobian and one DLS step within 1e-8 in f64; on the
+    CPU's per-seed solutions, the flags equal away from the tolerances and
+    each pick within 1e-4 of the best seed's score; end to end, the flags
+    equal on 97% of the targets (30 DLS steps from random seeds round
+    apart, ``tests/test_torch_ik.py``) and every solution the card accepts
+    reaches its pose and is free on the CPU (within 1e-5)."""
+    from unittest import mock
+
+    from mpinets_torch.kernels import ik
+
+    rot, trans, scene, scene_cpu, key = _tabletop_poses(64)
+    b = rot.shape[0]
+    u = ik.draw_uniforms(key, 16, b)
+    seeds = ik.seeds_from_draws(u)
+    assert torch.equal(ik.seeds_from_draws(ik.draw_uniforms(key, 16, b, cuda)).cpu(), seeds)
+
+    flat = (seeds.double().reshape(-1, 7), rot.double().expand(16, b, 3, 3).reshape(-1, 3, 3),
+            trans.double().expand(16, b, 3).reshape(-1, 3))
+    for cpu, card in zip((*ik.residual_and_jacobian(*flat), ik.dls_step(*flat)),
+                         (*ik.residual_and_jacobian(*(t.to(cuda) for t in flat)),
+                          ik.dls_step(*(t.to(cuda) for t in flat)))):
+        np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(), atol=1e-8, rtol=0)
+
+    qs = ik.dls_solve(seeds, rot, trans)
+    pos, ori = ik.pose_errors(qs, rot, trans)
+    ok = (pos < ik.POS_TOL) & (ori < ik.ORI_TOL) & ik.franka_free_space(qs, scene_cpu)
+    score = pos + 0.1 * ori + torch.where(ok, 0.0, 1e6)
+    best, cols = score.argmin(0), torch.arange(b)
+    with mock.patch.object(ik, "dls_solve", lambda *a, **k: qs.to(cuda)):
+        got = [t.cpu() for t in ik.collision_free_ik(None, rot.to(cuda), trans.to(cuda), scene,
+                                                     draws=u.to(cuda))]
+    pick = (qs == got[0][None]).all(-1).float().argmax(0)
+    assert torch.equal(qs[pick, cols], got[0])
+    away = ~_near_tolerance(pos[best, cols], ori[best, cols]) & ~_near_tolerance(got[2], got[3])
+    assert torch.equal(got[1][away], ok[best, cols][away])
+    low = score[best, cols]
+    assert bool((score[pick, cols] <= low + 1e-4 + torch.where(low >= 1e6, 0.0625, 0.0)).all())
+
+    got = ik.collision_free_ik(key, rot.to(cuda), trans.to(cuda), scene)
+    got = ik.IKResult(*(t.cpu() for t in got))
+    ref = ik.collision_free_ik(key, rot, trans, scene_cpu)
+    away = ~_near_tolerance(ref.pos_err, ref.ori_err) & ~_near_tolerance(got.pos_err, got.ori_err)
+    assert float((got.converged == ref.converged)[away].float().mean()) >= 0.97
+    q = got.q[got.converged]
+    pos, ori = ik.pose_errors(q, rot[got.converged], trans[got.converged])
+    assert bool((pos < ik.POS_TOL + 1e-5).all()) and bool((ori < ik.ORI_TOL + 1e-5).all())
+    assert bool(ik.franka_free_space(q, scene_cpu, -1e-5).all())
+
+
+@pytest.mark.cuda
+def test_ik_call_makes_no_host_sync(cuda):
+    """collision_free_ik captures into a CUDA graph, which raises on any host
+    sync while capturing: its 30 iterations, acceptance and selection never
+    wait for the card. The replay equals the call."""
+    from mpinets_torch.kernels import ik
+
+    rot, trans, scene, _, key = _tabletop_poses(512)
+    args = (rot.to(cuda), trans.to(cuda), scene)
+    draws = ik.draw_uniforms(key, 16, rot.shape[0], cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = ik.collision_free_ik(None, *args, draws=draws)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = ik.collision_free_ik(None, *args, draws=draws)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(eager, captured):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tabletop", "cubby", "merged-cubby", "dresser"])
+def test_environment_on_the_card(cuda, name):
+    """One scene of each environment on the card, its candidates re-checked
+    on the CPU: every configuration reaches its pose; the additional and
+    neutral candidates are free in the final scene (a dresser's start
+    candidate is solved before its target drawer opens); the funnel adds
+    up."""
+    from mpinets_torch import envs
+    from mpinets_torch.geom.scene import SceneSet
+    from mpinets_torch.kernels import ik
+
+    rng = np.random.default_rng(1)
+    env = envs.ENVIRONMENTS[name](device=cuda)
+    for _ in range(10):   # a dresser with one drawer, or no free candidate, is refused
+        if env.gen(rng):
+            break
+    assert len(env.demo_candidates) == 2
+    extra = env.gen_candidates(rng, 10)
+    neutral = env.gen_neutral_candidates(5, rng)
+    f = env.funnel
+    assert f["poses"] >= f["ik_solved"] >= f["free"] >= f["kept"] >= 2 + len(extra)
+    scene = SceneSet(*(t.cpu() for t in env._unbatched_scene()))
+    for cands, margin in ((env.demo_candidates, None), (extra, 0.0), (neutral, 0.01)):
+        if not cands:
+            continue
+        q = torch.as_tensor(np.stack([c.config for c in cands]), dtype=torch.float32)
+        rot = torch.as_tensor(np.stack([c.pose.matrix[:3, :3] for c in cands]),
+                              dtype=torch.float32)
+        trans = torch.as_tensor(np.stack([c.pose.position for c in cands]), dtype=torch.float32)
+        pos, ori = ik.pose_errors(q, rot, trans)
+        assert bool((pos < ik.POS_TOL + 1e-5).all()) and bool((ori < ik.ORI_TOL + 1e-5).all())
+        if margin is not None:
+            assert bool(ik.franka_free_space(q, scene, margin - 1e-5).all())

@@ -35,7 +35,16 @@ kernels as well), ``cli.infer`` in five modes, and scene generation: the
 batched IK (``kernels.ik``) on the card against the CPU with the same
 draws, captured in a CUDA graph (no host sync) and timed at 320 and 4,096
 targets x 16 seeds, then 4 scenes of each environment (``envs``), every
-candidate re-checked on the CPU. Last it drives the TPU probe session
+candidate re-checked on the CPU; the expert pipeline (``pipeline``):
+``plan_scene`` at gen's defaults on the first kept scene of each
+environment, the dresser's again with a PRM seed at full size (peak
+memory), card against CPU on 8 tabletop pairs with the same draws, the
+busy share of one ``plan_scene``, and ``gen`` (2 tabletop scenes held out
+for the problem pickle, read back and checked against the FK); the DAgger
+actors: the trainer's actor mode (synthetic data, reference widths, bf16,
+collects at steps 3, 6 and 9, each launching the kernels) and the real
+collector at B=16 on the expert phase's trajectories. Last it drives the
+TPU probe session
 (``mpinets_torch.probes.session``, what ``python -m mpinets_torch.probes``
 runs): each probe kernel of ``csrc/probes.cu`` against its plain version at
 the scripts' full shapes and on the scan's edge cases, then timed by the
@@ -1038,6 +1047,305 @@ def run_scene_generation(smi):
     return summary
 
 
+# ---- the expert pipeline and the DAgger actors ------------------------------
+PLAN_CANDIDATES = 4       # gen's default candidates_per_scene
+PLAN_CHECK_PAIRS = 8      # card against CPU: the first pairs of the tabletop scene
+PLAN_EDGE = 1e-5          # miss and jerk predicates compared this far from their thresholds
+PLAN_TRAJ_TOL = 1e-4      # planned trajectories, card against CPU (120 f32 optimizer steps;
+                          # the CPU against the JAX package: 1.67e-6, tests/test_torch_expert.py)
+HINDSIGHT_TOL = 1e-5      # a pickled target against the CPU's FK of its trajectory's last q
+DAGGER_INTERVAL = 3       # the trainer's actor_interval
+DAGGER_STEPS = 20         # actor_rollout_steps (the config's default)
+DAGGER_B = 16             # the real collector's batch
+DAGGER_OPT_STEPS = 60     # the config's dagger_opt_steps
+
+
+def run_expert_pipeline(smi, dev):
+    """The expert pipeline on ``dev`` (``mpinets_torch.pipeline``): one
+    ``plan_scene`` at gen's defaults on the first kept scene of each
+    environment (numpy seed SEED, as the scene-generation phase), the
+    dresser's once more with a PRM seed at the full PRM size and its peak
+    memory, card against CPU on the tabletop's first PLAN_CHECK_PAIRS pairs
+    with the same draws, the device's busy share of one ``plan_scene``, and
+    ``gen`` (2 tabletop scenes, every kept scene held out for the problem
+    pickle) with the pickle read back. -> (summary, {env: (trajectories,
+    scene arrays)}) for the DAgger phase."""
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpinets_torch import envs
+    from mpinets_torch.data import problems as problem_io
+    from mpinets_torch.geom.scene import SceneSet
+    from mpinets_torch.kernels import kinematics
+    from mpinets_torch.pipeline import expert, gen
+
+    summary, kept, calls = {}, {}, []
+    plan = expert.plan_pair_optimized
+
+    def timed_plan(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = plan(*args, **kwargs)
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t0, args))
+        return res
+
+    def plan_scene(env, rng, **kwargs):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with mock.patch.object(expert, "plan_pair_optimized", timed_plan):
+            trajs, arrays, stats = gen.plan_scene(env, rng, PLAN_CANDIDATES, False, **kwargs)
+        wall = time.perf_counter() - t0
+        plan_s = calls[-1][0]
+        out = {**stats, "plan_s": plan_s, "plan_scene_s": wall,
+               "pairs_per_s": stats["pairs"] / plan_s,
+               "valid_rate": stats["valid"] / max(stats["pairs"], 1),
+               "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+        tallies = {k: stats[k] for k in ("miss", "jerk", "self_collision", "env_collision",
+                                         "limit_violation")}
+        log(f"  {type(env).__name__}: {stats['valid']}/{stats['pairs']} valid "
+            f"({out['valid_rate']:.3f}); planner {plan_s:.3f} s ({out['pairs_per_s']:.2f} "
+            f"pairs/s), plan_scene {wall:.3f} s with its candidate IK; failure tallies "
+            f"{tallies}; peak memory {out['peak_gb']:.2f} GiB [{smi}]")
+        return trajs, arrays, out
+
+    for name, cls in envs.ENVIRONMENTS.items():
+        rng = np.random.default_rng(SEED)
+        t0 = time.perf_counter()
+        for attempt in range(SCENES_PER_ENV):
+            env = cls(device=dev)
+            if env.gen(rng):
+                break
+        else:
+            raise AssertionError(f"{name}: no scene kept of {SCENES_PER_ENV}")
+        log(f"  {name}: scene kept at attempt {attempt + 1} in {time.perf_counter() - t0:.2f} s")
+        trajs, arrays, stats = plan_scene(env, rng)
+        if not np.isfinite(trajs).all() or trajs.shape[1:] != (expert.SEQUENCE_LENGTH, 7):
+            raise AssertionError(f"{name}: trajectories {trajs.shape}, finite "
+                                 f"{np.isfinite(trajs).all()}")
+        summary[name] = stats
+        kept[name] = (env, rng, trajs, arrays, calls[-1][1])
+    if not any(len(k[2]) for k in kept.values()):
+        raise AssertionError("the expert pipeline planned no valid trajectory")
+
+    # the lazy PRM at its full size (126 nodes, k=14, 6 edge samples) on the dresser
+    env, rng = kept["dresser"][:2]
+    _, _, summary["dresser_n_prm_1"] = plan_scene(env, rng, plan_kwargs={"n_prm": 1})
+
+    # card against CPU, the same draws
+    args = kept["tabletop"][4]
+    qs, qg, rot, trans = (a[:PLAN_CHECK_PAIRS] for a in args[:4])
+    scene = args[4]
+    scene_cpu = SceneSet(*(t.cpu() for t in scene))
+    draws = expert.draw_plan(qs, qg)
+    draws_cpu = expert.draw_plan(qs.cpu(), qg.cpu())
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(draws[:2], draws_cpu[:2])):
+        raise AssertionError("expert: the card's draws differ from the CPU's")
+    got = plan(qs, qg, rot, trans, scene, draws=draws)
+    t0 = time.perf_counter()
+    ref = plan(qs.cpu(), qg.cpu(), rot.cpu(), trans.cpu(), scene_cpu, draws=draws_cpu)
+    cpu_s = time.perf_counter() - t0
+    traj_err = float((got.trajectory.cpu() - ref.trajectory).abs().max())
+    same = (torch.equal(got.valid.cpu(), ref.valid) and torch.equal(got.which.cpu(), ref.which))
+    log(f"  card vs CPU, {PLAN_CHECK_PAIRS} tabletop pairs: valid {got.valid.tolist()} / "
+        f"{ref.valid.tolist()}, which {got.which.tolist()} / {ref.which.tolist()}, "
+        f"trajectories within {traj_err:.3g} (gate {PLAN_TRAJ_TOL}); the CPU's plan took "
+        f"{cpu_s:.1f} s")
+    if not (same and traj_err <= PLAN_TRAJ_TOL):
+        raise AssertionError("expert: the card's plans differ from the CPU's")
+    ver_g = expert.verify_trajectory(got.trajectory, rot, trans, scene)
+    ver_c = expert.verify_trajectory(got.trajectory.cpu(), rot.cpu(), trans.cpu(), scene_cpu)
+    away = (((ver_c.miss - expert.MISS_TOLERANCE).abs() > PLAN_EDGE)
+            & ((ver_c.max_jerk - expert.MAX_JERK).abs() > PLAN_EDGE))
+    for field in ("valid", "has_self_collision", "has_env_collision", "within_limits"):
+        a, b = getattr(ver_g, field).cpu(), getattr(ver_c, field)
+        if not torch.equal(a[away] if field == "valid" else a, b[away] if field == "valid" else b):
+            raise AssertionError(f"expert: predicate {field} differs between card and CPU")
+    summary["card_vs_cpu"] = {"pairs": PLAN_CHECK_PAIRS, "trajectory_err": traj_err,
+                              "valid": got.valid.tolist(), "which": got.which.tolist()}
+
+    # the device's busy share of one plan_scene
+    env, rng = kept["tabletop"][:2]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        gen.plan_scene(env, rng, PLAN_CANDIDATES, False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = kernel_rows(prof)
+    busy_us = sum(e.self_device_time_total for e in rows)
+    summary["plan_scene_busy_share"] = busy_us / 1e6 / wall
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
+    log(f"  profile of one tabletop plan_scene: wall {wall * 1e3:.1f} ms, device kernel time "
+        f"{busy_us / 1e3:.1f} ms in {sum(e.count for e in rows)} kernels, busy share "
+        f"{busy_us / 1e6 / wall:.3f} (the profile's "
+        f"{len(prof.events())} events took {time.perf_counter() - t0:.1f} s to read); top kernels "
+        + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms" for e in top)
+        + f" [{smi}]")
+
+    # gen: 2 tabletop scenes, each held out for the problem pickle (no HDF5)
+    seen = []
+    hindsight = gen.hindsight_problems
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gen_") as tmp, \
+            mock.patch.object(gen, "hindsight_problems",
+                              lambda t, e: seen.append(t) or hindsight(t, e)):
+        t0 = time.perf_counter()
+        stats = gen.gen("tabletop", tmp, num_scenes=2, eval_every=1,
+                        inference_pkl=f"{tmp}/problems.pkl", device=dev)
+        t_gen = time.perf_counter() - t0
+        problems = problem_io.load_problems(f"{tmp}/problems.pkl")["tabletop"]["task-oriented"]
+        written = sorted(p.name for p in Path(tmp).iterdir())
+    trajs = np.concatenate(seen) if seen else np.zeros((0, expert.SEQUENCE_LENGTH, 7))
+    if not (len(problems) == len(trajs) == stats["eval_problems"] == stats["valid"] > 0
+            and written == ["problems.pkl"]):
+        raise AssertionError(f"gen: {len(problems)} problems, {len(trajs)} trajectories, "
+                             f"stats {stats}, files {written}")
+    _, ee = kinematics.eff_pose(torch.as_tensor(trajs[:, -1]))
+    target_err = max(float(np.abs(p.target.position - e).max()) for p, e in zip(problems, ee.numpy()))
+    q0_equal = all(np.array_equal(p.q0, t[0]) for p, t in zip(problems, trajs))
+    log(f"  gen tabletop, 2 scenes, eval_every=1: {stats['valid']}/{stats['pairs']} valid in "
+        f"{t_gen:.2f} s; {len(problems)} problems read back, targets within {target_err:.3g} of "
+        f"the CPU's FK of the last q (gate {HINDSIGHT_TOL}), q0 equal {q0_equal} [{smi}]")
+    if not (target_err <= HINDSIGHT_TOL and q0_equal):
+        raise AssertionError("gen: a pickled problem differs from its trajectory")
+    summary["gen"] = {"s": t_gen, "pairs": stats["pairs"], "valid": stats["valid"],
+                      "problems": len(problems), "target_err": target_err}
+    return summary, {name: k[2:4] for name, k in kept.items()}
+
+
+def dagger_problem_batch(planned, b):
+    """A real collector's batch of ``b`` rows from the expert phase's valid
+    trajectories, the environments taken in turn, each row with its scene
+    (primitive axes padded with zero-volume rows, identity quaternions)."""
+    import numpy as np
+
+    rows, it = [], {k: 0 for k in planned}
+    while len(rows) < b:
+        for name, (trajs, arrays) in planned.items():
+            if len(trajs) and len(rows) < b:
+                i = it[name] % len(trajs)
+                rows.append((trajs[i], {k: v[i] for k, v in arrays.items()}))
+                it[name] += 1
+    width = {k: max(r[1][k].shape[0] for r in rows) for k in rows[0][1]}
+
+    def pad(k, v):
+        out = np.zeros((width[k],) + v.shape[1:])
+        if k.endswith("quats"):
+            out[:, 0] = 1.0
+        out[: len(v)] = v
+        return out
+
+    traj = np.stack([r[0] for r in rows]).astype(np.float32)
+    batch = {k: np.stack([pad(k, r[1][k]) for r in rows]).astype(np.float32) for k in width}
+    return {"expert": traj, "raw_configuration": traj[:, 0], "raw_goal": traj[:, -1], **batch}
+
+
+def run_dagger(smi, dev, planned, count_path):
+    """The DAgger actors on ``dev``: the trainer at the reference widths,
+    synthetic data, bf16, ``actor_interval`` DAGGER_INTERVAL (collects at
+    steps 3, 6 and 9, each launching the kernels), then the real collector
+    at B=DAGGER_B on the expert phase's trajectories. -> summary."""
+    import numpy as np
+    import torch
+
+    from mpinets_torch.cli.config import load_config
+    from mpinets_torch.kernels import ops
+    from mpinets_torch.train import actor
+    from mpinets_torch.train.trainer import Trainer
+
+    summary, collects = {}, []
+    make = actor.make_dagger_collector
+
+    def counted(*args, **kwargs):
+        collect = make(*args, **kwargs)
+
+        def run(*cargs, **ckwargs):
+            before = dict(ops.LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = collect(*cargs, **ckwargs)
+            torch.cuda.synchronize()
+            collects.append((time.perf_counter() - t0,
+                             {k: v - before.get(k, 0) for k, v in ops.LAUNCHES.items()
+                              if v - before.get(k, 0)}))
+            return out
+
+        return run
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dagger_") as tmp:
+        cfg = load_config(None, {"optim": {"bf16": True}, "save_checkpoint_dir": tmp,
+                                 "seed": SEED,
+                                 "rollout": {"actor_interval": DAGGER_INTERVAL,
+                                             "actor_rollout_steps": DAGGER_STEPS}})
+        cfg.data.synthetic = True
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with mock.patch.object(actor, "make_dagger_collector", counted):
+            trainer = Trainer(cfg, test=True, device=dev)
+            state = trainer.run()
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        count_path("dagger actor", ("fps", "sa_select", "sa"))
+        rows = [json.loads(line) for line in open(trainer.ckpt_dir / "metrics.jsonl")]
+    act = [r for r in rows if "actor_val_loss" in r]
+    if not (state.step == 13 and [r["step"] for r in act] == [3, 6, 9] and len(collects) == 3
+            and all(np.isfinite(v) for r in rows for v in r.values())):
+        raise AssertionError(f"dagger actor: step {state.step}, actor rows {act}")
+    for dt, launches in collects:
+        if not all(launches.get(k) for k in ("fps", "sa_select", "sa")):
+            raise AssertionError(f"dagger actor: a collect launched {launches}")
+    b = cfg.optim.batch_size
+    summary["synthetic"] = {
+        "batch": b, "rollout_steps": DAGGER_STEPS, "collect_s": [c[0] for c in collects],
+        "actor_env_steps_per_s": [r["actor_env_steps_per_s"] for r in act],
+        "actor_learner_samples_per_s": [r["actor_learner_samples_per_s"] for r in act],
+        "run_s": t_run, "launches_per_collect": collects[-1][1]}
+    log(f"  trainer, synthetic, B={b}, actor_interval={DAGGER_INTERVAL}, {DAGGER_STEPS} rollout "
+        f"steps: 10 steps + 3 actor steps + 5 validations in {t_run:.1f} s; collects "
+        + ", ".join(f"{c[0] * 1e3:.1f}" for c in collects) + " ms; actor_env_steps_per_s "
+        + ", ".join(f"{r['actor_env_steps_per_s']:.1f}" for r in act)
+        + f"; actor losses {[round(r['actor_val_loss'], 4) for r in act]}; launches per "
+        f"collect {collects[-1][1]} [{smi}]")
+
+    # the real collector on the expert phase's trajectories
+    batch = dagger_problem_batch(planned, DAGGER_B)
+    collect = actor.make_real_dagger_collector(state.model, DAGGER_STEPS,
+                                               opt_steps=DAGGER_OPT_STEPS, device=dev)
+    ops.reset_launches()
+    times = []
+    for rep in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, info = collect(batch, torch.Generator(dev).manual_seed(SEED + rep))
+        accept = float(info["dagger_accept_frac"])
+        times.append(time.perf_counter() - t0)
+        if not (all(bool(torch.isfinite(v).all()) for v in out.values())
+                and out["xyz"].shape == (DAGGER_B, 6272, 4)
+                and float(out["supervision"].abs().max()) <= 1.0 + 1e-5):
+            raise AssertionError("real DAgger collector: a bad batch")
+        if rep == 0:
+            count_path("real DAgger collector", ("fps", "sa_select", "sa"))
+    # the same batch under a policy that stands still: every visited state is
+    # the expert's start, so the acceptance is the optimizer's own from there
+    standing = actor.make_real_dagger_collector(
+        state.model, DAGGER_STEPS, apply_fn=lambda m, xyz, q: torch.zeros_like(q),
+        opt_steps=DAGGER_OPT_STEPS, device=dev)
+    accept_standing = float(standing(batch, torch.Generator(dev).manual_seed(SEED))[1][
+        "dagger_accept_frac"])
+    summary["real"] = {"batch": DAGGER_B, "opt_steps": DAGGER_OPT_STEPS, "collect_s": times,
+                       "dagger_accept_frac": accept,
+                       "dagger_accept_frac_standing_policy": accept_standing}
+    log(f"  real collector, B={DAGGER_B}, {DAGGER_STEPS} rollout steps, {DAGGER_OPT_STEPS} "
+        f"optimizer steps: {times[0]:.3f} s, again {times[1]:.3f} s; dagger_accept_frac "
+        f"{accept:.4f} (random weights), {accept_standing:.4f} under a policy that stands at "
+        f"the expert's start [{smi}]")
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -1664,6 +1972,21 @@ def main() -> int:
         f"IK and the environments run none: plain torch, cuSOLVER and cuBLAS); the phase took "
         f"{time.perf_counter() - t0:.1f} s")
 
+    # ---- 4d. the expert pipeline and the DAgger actors --------------------
+    phase("expert pipeline: plan_scene at gen's defaults in each environment, the PRM at full "
+          "size, card vs CPU, gen")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    expert_summary, planned = run_expert_pipeline(smi, dev)
+    torch.cuda.synchronize()
+    log(f"expert pipeline: hand-written kernel launches {dict(ops.LAUNCHES_BY_SHAPE)} (the "
+        f"planner runs none: plain torch and cuBLAS); the phase took "
+        f"{time.perf_counter() - t0:.1f} s")
+    phase("DAgger actors: the trainer's actor mode (synthetic) and the real collector")
+    t0 = time.perf_counter()
+    expert_summary["dagger"] = run_dagger(smi, dev, planned, count_path)
+    log(f"DAgger actors: the phase took {time.perf_counter() - t0:.1f} s")
+
     # ---- 5. the TPU probe session ----------------------------------------
     from mpinets_torch.probes import session as probe_session
 
@@ -1732,6 +2055,7 @@ def main() -> int:
                     "fast_grouping": FAST_W, "compute_dtype": "bfloat16",
                     "train": {str(k): v for k, v in train_rates.items()},
                     "evaluation": eval_summary, "scene_generation": scene_summary,
+                    "expert_pipeline": expert_summary,
                     "card": smi}))
     log(smi)
     log(json.dumps({"kernels": kernels}))

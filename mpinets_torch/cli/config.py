@@ -71,8 +71,8 @@ class RolloutConfig:
     #: current policy out on-device and feed a DAgger-relabeled batch back
     #: into the learner (0 = offline BC only). In synthetic mode the
     #: relabeling expert is the min-jerk pseudo-expert; in hdf5 mode it is
-    #: the real SDF-optimizer expert over the dataset's scenes. Neither
-    #: mode is ported yet: the trainer refuses ``actor_interval > 0``.
+    #: the real SDF-optimizer expert over the dataset's scenes, which the
+    #: trainer refuses until the hdf5 data mode is ported (ROADMAP.md A11).
     actor_interval: int = 0
     #: closed-loop steps per actor rollout
     actor_rollout_steps: int = 20

@@ -155,6 +155,6 @@ def self_collision(q: torch.Tensor, margin: float = 0.0) -> torch.Tensor:
 def within_limits(q: torch.Tensor, use_real_constraints: bool = False) -> torch.Tensor:
     """Joint-limit predicate (``FrankaRobot.within_limits``,
     ``metrics.py:320``). q [..., 7] -> bool [...]."""
-    table = franka.REAL_JOINT_LIMITS if use_real_constraints else franka.JOINT_LIMITS
-    limits = torch.as_tensor(table, dtype=q.dtype, device=q.device)
+    table = "REAL_JOINT_LIMITS" if use_real_constraints else "JOINT_LIMITS"
+    limits = franka_table(table, q.dtype, q.device)
     return torch.all((q >= limits[:, 0]) & (q <= limits[:, 1]), dim=-1)

@@ -10,8 +10,17 @@ checkpoints; W&B becomes a local JSONL stream with the reference's log keys
 (``point_match_loss``, ``collision_loss``, ``val_loss``,
 ``avg_target_error``, ``avg_collision_rate``; ``model.py:233-239,347-352``).
 
-Not ported yet: the hdf5 data mode (``ROADMAP.md`` A11), the DAgger actor
-modes (A12) and data parallelism over several cards (A13).
+Actor-learner mode (``rollout.actor_interval`` > 0, synthetic data): every
+``actor_interval`` learner steps the DAgger collector
+(:func:`mpinets_torch.train.actor.make_dagger_collector`) rolls the current
+policy out and the learner takes one more step on its relabelled batch,
+logged under ``actor_*`` with ``actor_env_steps_per_s`` and
+``actor_learner_samples_per_s``.
+
+Not ported yet: the hdf5 data mode and with it the hdf5 actor mode (the
+real-scene collector, :func:`mpinets_torch.train.actor.make_real_dagger_collector`,
+is ported; the dataset reader is ``ROADMAP.md`` A11), and data
+parallelism over several cards (A13).
 """
 
 from __future__ import annotations
@@ -79,13 +88,15 @@ class Trainer:
 
     def __post_init__(self):
         cfg = self.cfg
+        if not cfg.data.synthetic and cfg.rollout.actor_interval:
+            raise NotImplementedError(
+                "the hdf5 actor mode needs the hdf5 data mode, which is not ported "
+                "(ROADMAP.md queue A item 11); its collector is "
+                "mpinets_torch.train.actor.make_real_dagger_collector")
         if not cfg.data.synthetic:
             raise NotImplementedError(
                 "the hdf5 data mode is not ported (ROADMAP.md queue A item 11); "
                 "use the synthetic data mode")
-        if cfg.rollout.actor_interval:
-            raise NotImplementedError(
-                "the DAgger actor modes are not ported (ROADMAP.md queue A item 12)")
         self.device = resolve_device(self.device)
         if self.fused is False and self.device.type == "cuda":
             raise ValueError("fused=False: on cuda the trainer runs the kernel-backed forward; "
@@ -174,6 +185,16 @@ class Trainer:
         print(f"experiment {self.experiment_id}: {self.device}, batch {self.global_batch}, "
               f"{limit_batches} batches/epoch x {max_epochs} epochs", flush=True)
 
+        # actor-learner mode: the DAgger collector rolls the current policy
+        # out and its relabelled batch takes a step of the same learner
+        actor_interval = cfg.rollout.actor_interval
+        collect_fn = None
+        if actor_interval:
+            from mpinets_torch.train.actor import make_dagger_collector
+
+            collect_fn = make_dagger_collector(self.model, cfg.rollout.actor_rollout_steps,
+                                               self.sizes, device=self.device)
+
         last_ckpt_time = time.time()
         t_run_start = time.time()
         tick = None
@@ -191,6 +212,20 @@ class Trainer:
                     break
                 state, metrics = step_fn(state, next(stream))
                 step += 1
+
+                if collect_fn is not None and step % actor_interval == 0:
+                    t_actor = time.time()
+                    generator = torch.Generator(self.device).manual_seed(
+                        _seed(cfg.seed, 0xDA66, step))
+                    state, a_metrics = step_fn(state, collect_fn(self.global_batch, generator))
+                    row = {f"actor_{k}": float(v) for k, v in a_metrics.items()}
+                    dt_actor = time.time() - t_actor
+                    # the actor-learner split: closed-loop env-steps collected
+                    # and learner samples consumed per second of actor time
+                    row["actor_env_steps_per_s"] = (
+                        cfg.rollout.actor_rollout_steps * self.global_batch / max(dt_actor, 1e-9))
+                    row["actor_learner_samples_per_s"] = self.global_batch / max(dt_actor, 1e-9)
+                    self.logger.log(step, row)
 
                 if step % 50 == 0 or step == 1:
                     host = {k: float(v) for k, v in metrics.items()}

@@ -174,8 +174,9 @@ def test_trainer_refuses_unported_modes(tmp_path):
     with pytest.raises(NotImplementedError, match="A.*11"):
         Trainer(cfg, device="cpu")
     cfg = _tiny_config(tmp_path)
+    cfg.data.synthetic = False
     cfg.rollout.actor_interval = 3
-    with pytest.raises(NotImplementedError, match="A.*12"):
+    with pytest.raises(NotImplementedError, match="hdf5 actor mode.*A.*11"):
         Trainer(cfg, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):

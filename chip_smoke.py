@@ -43,7 +43,17 @@ busy share of one ``plan_scene``, and ``gen`` (2 tabletop scenes held out
 for the problem pickle, read back and checked against the FK); the DAgger
 actors: the trainer's actor mode (synthetic data, reference widths, bf16,
 collects at steps 3, 6 and 9, each launching the kernels) and the real
-collector at B=16 on the expert phase's trajectories. Last it drives the
+collector at B=16 on the expert phase's trajectories; data-parallel
+training on the dataset layout: a process group of world size 1 on NCCL
+(``parallel.mesh.multihost_init``), train and validation splits in the
+disk schema from the expert phase's trajectories, ``InstanceLoader`` ->
+``prepare_train_batch`` on the card (held against the CPU on the same
+draws) -> ``make_data_parallel_step`` with the kernel forward at B=10 and
+64 (timed beside ``make_train_step`` on the same batch; an f32 DP step's
+gradients held against it), the all-reduce timed alone,
+``make_sharded_success_stats`` on the validation split (held against the
+plain rollout on the same draws), one hdf5-actor collect and its DP step,
+and ``Trainer.run`` in hdf5 mode where ``h5py`` imports. Last it drives the
 TPU probe session
 (``mpinets_torch.probes.session``, what ``python -m mpinets_torch.probes``
 runs): each probe kernel of ``csrc/probes.cu`` against its plain version at
@@ -1346,6 +1356,288 @@ def run_dagger(smi, dev, planned, count_path):
     return summary
 
 
+DP_MIN_S = 2.0            # seconds of timed data-parallel steps per batch size and rate
+DP_VAL_ROWS = 16          # validation problems of the data-parallel phase
+DP_STATS_STEPS = 150      # make_sharded_success_stats' default max_steps
+PREPARE_TOL = 1e-5        # prepare_train_batch, card vs CPU on the same draws
+
+
+def dataset_arrays(planned, rows=None):
+    """The expert phase's trajectories and scenes as one split in the disk
+    schema (``data.writer``'s keys: ``hybrid_solutions``,
+    ``cuboid_quaternions``, ...), primitive axes padded with zero rows as
+    ``data.process.merge_files`` pads them; the first ``rows`` rows."""
+    import numpy as np
+
+    from mpinets_torch.data.writer import DISK_KEYS
+
+    parts = [(t, a) for t, a in planned.values() if len(t)]
+    width = {k: max(a[k].shape[1] for _, a in parts) for k in parts[0][1]}
+
+    def pad(k, v):
+        out = np.zeros((v.shape[0], width[k]) + v.shape[2:])
+        out[:, : v.shape[1]] = v
+        return out
+
+    trajs = np.concatenate([t for t, _ in parts]).astype(np.float64)[:rows]
+    out = {"hybrid_solutions": trajs, "global_solutions": trajs}
+    for k in width:
+        out[DISK_KEYS[k]] = np.concatenate([pad(k, a[k]) for _, a in parts])[:rows]
+    return out
+
+
+def run_data_parallel(smi, dev, planned, count_path):
+    """Data-parallel training on the dataset layout at world size 1 on
+    NCCL: the process group through ``parallel.mesh.multihost_init``, the
+    train and validation splits in the disk schema from the expert phase's
+    trajectories (``TrajectoryDataset._from_arrays``), then ``InstanceLoader``
+    -> ``prepare_train_batch`` on the card -> ``make_data_parallel_step``
+    with the kernel forward at B=10 and 64 (bf16), checks of the prepared
+    batch (card vs CPU on the same draws) and of an f32 DP step's gradients
+    (vs ``make_train_step``), the sharded success statistics on the
+    validation split (vs the plain rollout on the same draws), one
+    hdf5-actor collect and its DP step, and ``Trainer.run`` in hdf5 mode
+    where h5py imports. -> summary."""
+    import functools
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mpinets_torch.cli.config import load_config
+    from mpinets_torch.data import hdf5, synthetic, writer
+    from mpinets_torch.kernels import kinematics, ops
+    from mpinets_torch.model.fused import make_fused_apply
+    from mpinets_torch.model.fused_train import make_fused_train_apply
+    from mpinets_torch.model.policy import MotionPolicyNetwork
+    from mpinets_torch.parallel import mesh as pmesh
+    from mpinets_torch.parallel.rollout import STAT_KEYS, make_sharded_success_stats
+    from mpinets_torch.rollout.engine import make_rollout_fn
+    from mpinets_torch.train import actor, learner
+    from mpinets_torch.train.trainer import Trainer
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    if not pmesh.multihost_init(f"localhost:{port}", 1, 0, device=dev):
+        raise AssertionError("data-parallel: multihost_init made no process group")
+    summary = {}
+    try:
+        mesh = pmesh.make_mesh()
+        group = mesh.get_group("data")
+        log(f"  process group: backend {dist.get_backend()}, world size {dist.get_world_size()}, "
+            f"mesh {mesh}")
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            raise AssertionError("data-parallel: not an NCCL group of world size 1")
+        train = hdf5.TrajectoryDataset._from_arrays(dataset_arrays(planned))
+        val = hdf5.TrajectoryDataset._from_arrays(dataset_arrays(planned, DP_VAL_ROWS),
+                                                  dataset_type=hdf5.DatasetType.VAL)
+        log(f"  splits in the disk schema: train {train.num_trajectories} trajectories "
+            f"({train.num_instances} instances, {train.max_cuboids} cuboid and "
+            f"{train.max_cylinders} cylinder slots), val {val.num_trajectories}")
+        summary["train_trajectories"] = train.num_trajectories
+
+        # prepare_train_batch: the card against the CPU on the same draws
+        raw_cpu = hdf5.to_device(train.read_instance_batch(
+            np.arange(64) % train.num_trajectories, np.arange(64) % train.expert_length), "cpu")
+        draws = hdf5.draw_prepare(torch.Generator().manual_seed(SEED), raw_cpu)
+        ref = hdf5.prepare_train_batch(raw_cpu, draws=draws)
+        got = hdf5.prepare_train_batch(hdf5.to_device(raw_cpu, dev), draws=draws)
+        err = max(float((got[k].cpu() - v).abs().max()) for k, v in ref.items())
+        log(f"  prepare_train_batch B=64, card vs CPU on the same draws: max abs err {err:.3g} "
+            f"(gate {PREPARE_TOL})")
+        if not err <= PREPARE_TOL:
+            raise AssertionError("prepare_train_batch: the card differs from the CPU")
+        raw64 = hdf5.to_device(raw_cpu, dev)
+        pgen = torch.Generator(dev).manual_seed(SEED)
+        summary["prepare_ms_b64"] = cuda_ms(lambda: hdf5.prepare_train_batch(raw64, pgen), 10)
+        summary["training_batch_ms_b64"] = cuda_ms(
+            lambda: synthetic.training_batch(pgen, 64, device=dev), 10)
+        summary["prepare_err"] = err
+        log(f"  prepare_train_batch B=64: {summary['prepare_ms_b64']:.3f} ms; the synthetic "
+            f"trainer's training_batch B=64: {summary['training_batch_ms_b64']:.3f} ms [{smi}]")
+        phase("profile: prepare_train_batch, B=64 (torch.profiler)")
+        profile_rollout(lambda *_: hdf5.prepare_train_batch(raw64, pgen), None, None, top=8)
+
+        # the gradient all-reduce of the full model, alone
+        model = MotionPolicyNetwork(compute_dtype=bf16, device=dev,
+                                    generator=torch.Generator().manual_seed(SEED))
+        numel = sum(p.numel() for p in model.parameters())
+        flat = torch.zeros(numel + 4, device=dev)
+        summary["allreduce_ms"] = cuda_ms(lambda: dist.all_reduce(flat, group=group), 20)
+        log(f"  all-reduce of {numel + 4} f32 ({(numel + 4) * 4 / 1e6:.1f} MB, the gradients and "
+            f"4 metrics), NCCL, world size 1: {summary['allreduce_ms']:.4f} ms [{smi}]")
+
+        # one f32 DP step against make_train_step: gradients within the gate
+        grads, metrics = [], []
+        for make in (learner.make_train_step, functools.partial(
+                learner.make_data_parallel_step, mesh)):
+            m32 = MotionPolicyNetwork(compute_dtype=f32, device=dev,
+                                      generator=torch.Generator().manual_seed(SEED + 1))
+            st = learner.init_state(m32)
+            st, met = make(apply_fn=make_fused_train_apply(f32))(st, got)
+            grads.append([p.grad.clone() for p in m32.parameters()])
+            metrics.append({k: float(v) for k, v in met.items()})
+        g_err = max(float(((a - b).abs() - (GRAD_ATOL + GRAD_RTOL * b.abs().max())).max())
+                    for a, b in zip(*reversed(grads)))
+        log(f"  f32 DP step vs make_train_step, B=64: worst gradient excess over the gate "
+            f"{g_err:.3g} (<= 0 holds); losses {metrics[1]['val_loss']:.6f} / "
+            f"{metrics[0]['val_loss']:.6f}")
+        if g_err > 0 or abs(metrics[1]["val_loss"] - metrics[0]["val_loss"]) > 1e-5 * abs(
+                metrics[0]["val_loss"]):
+            raise AssertionError("the f32 DP step differs from make_train_step")
+
+        # the training path: loader -> prepare on the card -> DP step, bf16
+        state = learner.init_state(model)
+        learner.broadcast_state(state, mesh)
+        apply = make_fused_train_apply(bf16)
+        prepare = hdf5.prepare_train_batch
+        dp_step = learner.make_data_parallel_step(mesh, prepare_fn=prepare, apply_fn=apply)
+        dp_core = learner.make_data_parallel_step(mesh, apply_fn=apply)
+        plain_step = learner.make_train_step(apply_fn=apply)
+        rates = {}
+        for b_ in TRAIN_BATCHES:
+            stream = iter(hdf5.InstanceLoader(train, b_, seed=SEED, pin_memory=True))
+            holder = [state]
+            counter = [0]
+
+            def step(raw):
+                counter[0] += 1
+                holder[0], out = dp_step(holder[0], raw, pmesh.fold_seed(SEED, counter[0]))
+                return out
+
+            def on_batch(step_fn):
+                holder[0] = step_fn(holder[0], batch)[0]
+
+            ops.reset_launches()
+            for _ in range(3):
+                metrics = step(hdf5.to_device(next(stream), dev))
+            torch.cuda.synchronize()
+            count_path(f"data-parallel train B={b_}", ("fps", "sa_select", "sa_raw"))
+            if not all(np.isfinite(float(v)) for v in metrics.values()):
+                raise AssertionError(f"data-parallel train B={b_}: {metrics}")
+            raw = hdf5.to_device(next(stream), dev)
+            batch = prepare(raw, torch.Generator(dev).manual_seed(SEED))
+            timed = {
+                "loader_prepare_step": step_times(
+                    lambda: step(hdf5.to_device(next(stream), dev)), DP_MIN_S, TRAIN_CHUNK),
+                "prepare_step": step_times(lambda: step(raw), DP_MIN_S, TRAIN_CHUNK),
+                "dp_step": step_times(lambda: on_batch(dp_core), DP_MIN_S, TRAIN_CHUNK),
+                "train_step": step_times(lambda: on_batch(plain_step), DP_MIN_S, TRAIN_CHUNK),
+            }
+            stream.close()
+            state = holder[0]
+            r = {}
+            for key, ts in timed.items():
+                samples = sorted(b_ / t for t in ts)
+                r[f"{key}_samples_per_s_median"] = float(np.median(samples))
+                r[f"{key}_samples_per_s_min"] = samples[0]
+                r[f"{key}_samples_per_s_max"] = samples[-1]
+                r[f"{key}_ms_median"] = float(np.median(ts)) * 1e3
+            rates[b_] = r
+            log(f"  B={b_}, bf16, samples/s median (min, max) of chunks of {TRAIN_CHUNK}: "
+                + "; ".join(f"{k} {r[k + '_samples_per_s_median']:.1f} "
+                            f"({r[k + '_samples_per_s_min']:.1f}, "
+                            f"{r[k + '_samples_per_s_max']:.1f}), "
+                            f"{r[k + '_ms_median']:.2f} ms" for k in timed)
+                + f" [{smi}]")
+        summary["rates"] = {str(k): v for k, v in rates.items()}
+
+        # the sharded success statistics on the validation split
+        vb = val.read_trajectory_batch(np.arange(val.num_trajectories))
+        rot, trans = kinematics.eff_pose(torch.as_tensor(vb["raw_goal"], device=dev))
+        problems = synthetic.Problem(torch.as_tensor(vb["raw_configuration"], device=dev), rot,
+                                     trans, hdf5.scene_from_arrays(vb, dev))
+        stats_fn = make_sharded_success_stats(model, mesh, max_steps=DP_STATS_STEPS, device=dev)
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = {k: float(v) for k, v in stats_fn(problems, SEED).items()}
+        torch.cuda.synchronize()
+        summary["success_stats_s"] = time.perf_counter() - t0
+        count_path(f"sharded success stats B={val.num_trajectories}", ("fps", "sa_select", "sa"))
+        plain = make_rollout_fn(model, max_steps=DP_STATS_STEPS, stop_on_success=True,
+                                record_trajectory=False, apply_fn=make_fused_apply(bf16),
+                                device=dev)(problems, pmesh.rank_generator(SEED, 0, dev))
+        _, ee = kinematics.eff_pose(plain.final_q)
+        ref_stats = dict(zip(STAT_KEYS, (plain.success.float().mean().item(),
+                                         plain.num_steps.float().mean().item(),
+                                         torch.linalg.norm(ee - trans, dim=-1).mean().item())))
+        s_err = max(abs(stats[k] - ref_stats[k]) for k in STAT_KEYS)
+        log(f"  make_sharded_success_stats, {val.num_trajectories} validation problems, "
+            f"{DP_STATS_STEPS} steps: {stats} in {summary['success_stats_s']:.3f} s; the plain "
+            f"rollout on the same draws {ref_stats} (max diff {s_err:.3g}) [{smi}]")
+        if s_err > 1e-6:
+            raise AssertionError("sharded success stats differ from the plain rollout's")
+        summary["success_stats"] = stats
+
+        # one hdf5-actor collect (the trainer's draw of training trajectories)
+        # and its DP step
+        collect = actor.make_real_dagger_collector(model, DAGGER_STEPS,
+                                                   opt_steps=DAGGER_OPT_STEPS, device=dev)
+        idx = np.random.default_rng(SEED + 0xDA66).integers(0, train.num_trajectories,
+                                                            size=DAGGER_B)
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dagger, info = collect(hdf5.to_device(train.read_trajectory_batch(idx), dev),
+                               torch.Generator(dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        t_collect = time.perf_counter() - t0
+        state, a_metrics = dp_core(state, dagger)
+        torch.cuda.synchronize()
+        t_step = time.perf_counter() - t0 - t_collect
+        count_path(f"hdf5-actor collect B={DAGGER_B} and its DP step",
+                   ("fps", "sa_select", "sa", "sa_raw"))
+        if not all(np.isfinite(float(v)) for v in a_metrics.values()):
+            raise AssertionError(f"hdf5-actor DP step: {a_metrics}")
+        summary["actor"] = {"collect_s": t_collect, "step_s": t_step,
+                            "dagger_accept_frac": float(info["dagger_accept_frac"])}
+        log(f"  hdf5-actor collect, B={DAGGER_B}, {DAGGER_STEPS} rollout steps, "
+            f"{DAGGER_OPT_STEPS} optimizer steps: {t_collect:.3f} s, its DP step "
+            f"{t_step * 1e3:.1f} ms; dagger_accept_frac "
+            f"{summary['actor']['dagger_accept_frac']:.4f}; actor loss "
+            f"{float(a_metrics['val_loss']):.5f} [{smi}]")
+
+        # Trainer.run in hdf5 mode with the actor, on a file, where h5py imports
+        try:
+            import h5py  # noqa: F401
+        except ImportError as e:
+            log(f"  h5py does not import here ({e!r}): the HDF5 file reader and Trainer.run in "
+                "hdf5 mode were not run; everything behind the reader ran above, from arrays in "
+                "the disk schema")
+            summary["trainer_hdf5"] = None
+        else:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_hdf5_") as tmp:
+                writer.write_synthetic_dataset(f"{tmp}/data", "train", num_trajectories=32,
+                                               seed=SEED)
+                writer.write_synthetic_dataset(f"{tmp}/data", "val", num_trajectories=8,
+                                               seed=SEED + 1)
+                cfg = load_config(None, {"optim": {"bf16": True}, "save_checkpoint_dir": tmp,
+                                         "seed": SEED, "data": {"data_dir": f"{tmp}/data"},
+                                         "rollout": {"actor_interval": DAGGER_INTERVAL,
+                                                     "actor_rollout_steps": DAGGER_STEPS}})
+                ops.reset_launches()
+                t0 = time.perf_counter()
+                trainer = Trainer(cfg, test=True, device=dev)
+                st = trainer.run()
+                torch.cuda.synchronize()
+                count_path("trainer, hdf5 mode with the actor", ("fps", "sa_select", "sa",
+                                                                  "sa_raw"))
+                rows = [json.loads(line) for line in open(trainer.ckpt_dir / "metrics.jsonl")]
+            act = [r for r in rows if "dagger_accept_frac" in r]
+            if st.step != 13 or [r["step"] for r in act] != [3, 6, 9]:
+                raise AssertionError(f"trainer, hdf5 mode: step {st.step}, actor rows {act}")
+            summary["trainer_hdf5"] = {"s": time.perf_counter() - t0}
+            log(f"  Trainer.run, hdf5 mode with the actor, B=10: 13 steps in "
+                f"{summary['trainer_hdf5']['s']:.1f} s")
+    finally:
+        dist.destroy_process_group()
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -1986,6 +2278,10 @@ def main() -> int:
     t0 = time.perf_counter()
     expert_summary["dagger"] = run_dagger(smi, dev, planned, count_path)
     log(f"DAgger actors: the phase took {time.perf_counter() - t0:.1f} s")
+    phase("data-parallel training on the dataset layout (world size 1, NCCL)")
+    t0 = time.perf_counter()
+    dp_summary = run_data_parallel(smi, dev, planned, count_path)
+    log(f"data-parallel training: the phase took {time.perf_counter() - t0:.1f} s")
 
     # ---- 5. the TPU probe session ----------------------------------------
     from mpinets_torch.probes import session as probe_session
@@ -2055,7 +2351,7 @@ def main() -> int:
                     "fast_grouping": FAST_W, "compute_dtype": "bfloat16",
                     "train": {str(k): v for k, v in train_rates.items()},
                     "evaluation": eval_summary, "scene_generation": scene_summary,
-                    "expert_pipeline": expert_summary,
+                    "expert_pipeline": expert_summary, "data_parallel": dp_summary,
                     "card": smi}))
     log(smi)
     log(json.dumps({"kernels": kernels}))

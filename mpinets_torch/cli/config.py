@@ -26,8 +26,8 @@ class DataConfig:
     random_scale: float = 0.015
     #: Use the on-device synthetic generator instead of HDF5 files.
     synthetic: bool = False
-    #: Cache the split's arrays in host RAM at open (hdf5 mode, not ported;
-    #: kept so the config matches the JAX package's field for field).
+    #: Cache the split's arrays in host RAM at open (hdf5 mode): removes the
+    #: h5py random-row gathers from the input stream.
     in_memory: bool = False
 
 
@@ -71,8 +71,7 @@ class RolloutConfig:
     #: current policy out on-device and feed a DAgger-relabeled batch back
     #: into the learner (0 = offline BC only). In synthetic mode the
     #: relabeling expert is the min-jerk pseudo-expert; in hdf5 mode it is
-    #: the real SDF-optimizer expert over the dataset's scenes, which the
-    #: trainer refuses until the hdf5 data mode is ported (ROADMAP.md A11).
+    #: the real SDF-optimizer expert over the dataset's scenes.
     actor_interval: int = 0
     #: closed-loop steps per actor rollout
     actor_rollout_steps: int = 20

@@ -3,12 +3,19 @@
 Port of ``mpinets_tpu/cli/train.py`` (the interface of the reference's
 ``run_training.py:134-204``), with ``--device``::
 
-    python -m mpinets_torch.cli.train [jobconfig.yaml] --synthetic-data [--test]
+    python -m mpinets_torch.cli.train [jobconfig.yaml] [--synthetic-data] [--test]
         [--no-logging] [--no-checkpointing] [--resume EXP_DIR] [--device cuda|cpu]
 
 The YAML may be the reference's ``jobconfig.yaml`` layout or this package's
 nested layout (:mod:`mpinets_torch.cli.config`); PyYAML is needed only when
-one is given. Only the synthetic data mode is ported.
+one is given. Without ``--synthetic-data`` the trainer reads the published
+dataset layout under ``data.data_dir`` (``{train,val}/*.hdf5``, ``h5py``).
+Data parallelism over N cards of a host runs one process a card::
+
+    torchrun --nproc_per_node N -m mpinets_torch.cli.train [jobconfig.yaml] ...
+
+(or ``MPINETS_COORDINATOR=host:port`` with ``WORLD_SIZE`` and ``RANK``);
+``optim.batch_size`` is per card.
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ def main(argv=None) -> None:
     parser.add_argument("--no-checkpointing", action="store_true")
     parser.add_argument(
         "--synthetic-data", action="store_true",
-        help="train on the on-device pseudo-expert generator (the only data mode ported)",
+        help="train on the on-device pseudo-expert generator instead of HDF5 files",
     )
     parser.add_argument(
         "--resume", default=None, metavar="EXP_DIR",

@@ -1,4 +1,5 @@
-"""The behavior-cloning learner: optimizer, loss and train step.
+"""The behavior-cloning learner: optimizer, loss, train step and the
+data-parallel (DP) step.
 
 Port of ``mpinets_tpu/train/learner.py`` (reference
 ``mpinets/run_training.py:71-115``, ``mpinets/model.py:185-240``). The JAX
@@ -6,8 +7,11 @@ package's optax chain becomes one torch optimizer, :class:`ClippedAdam`,
 that repeats it: global-norm clip, then Adam, with the learning rate of
 ``optax.warmup_cosine_decay_schedule`` evaluated at the step count before
 the update. The parameters live in the model and are updated in place.
-``make_data_parallel_step`` and ``shard_batch`` wait for the multi-GPU
-slice (``ROADMAP.md`` A13).
+The DP step (:func:`make_data_parallel_step`) replaces Lightning's DDP: each
+rank computes the gradient of its block of the batch, one flat f32
+all-reduce a step averages the gradients (and the metrics) over the mesh's
+data axis, and only then does the optimizer clip and step, as the JAX
+package's ``pmean`` precedes ``optimizer.update``.
 
 Reference hyperparameters: Adam lr 1e-4 (``model.py:72``), grad clip 1.0
 (``run_training.py:110``), loss weights point-match 1 : collision 5
@@ -21,8 +25,10 @@ import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from mpinets_torch.geom.scene import SceneSet
+from mpinets_torch.parallel.mesh import DATA_AXIS, axis_group, rank_generator, shard_leading_axis
 from mpinets_torch.train import loss as losses
 
 LEARNING_RATE = 1e-4
@@ -202,3 +208,86 @@ def make_train_step(
         return state._replace(step=state.step + 1), {k: v.detach() for k, v in metrics.items()}
 
     return train_step
+
+
+def make_data_parallel_step(
+    mesh=None,
+    data_axis: str = DATA_AXIS,
+    point_match_weight: float = POINT_MATCH_WEIGHT,
+    collision_weight: float = COLLISION_WEIGHT,
+    prepare_fn=None,
+    apply_fn=None,
+    ema_decay: float = 0.0,
+):
+    """-> the DP step over ``mesh``'s ``data_axis``: ``step(state, batch)``
+    on this rank's block of the global batch, parameters replicated. In the
+    order of the JAX package's ``_core``: the local loss and its gradient;
+    the mean of the gradients and metrics over the ranks (one all-reduce of
+    a flat f32 buffer); the optimizer (global-norm clip, then Adam); the
+    EMA. Without a mesh no collective is made, and the step is
+    :func:`make_train_step`'s.
+
+    ``prepare_fn(raw, generator=None, draws=None) -> batch`` (e.g.
+    :func:`mpinets_torch.data.hdf5.prepare_train_batch`) builds the batch
+    on the device inside the step, which then takes
+    ``step(state, raw, generator_or_draws)``: an integer seed is folded
+    with the rank (``fold_in(key, axis_index)``), a generator is used as it
+    is, anything else is handed to ``prepare_fn`` as its draws.
+    ``apply_fn`` overrides the forward (e.g. the kernel-backed
+    :func:`mpinets_torch.model.fused_train.make_fused_train_apply`).
+    """
+    group, index, count = axis_group(mesh, data_axis)
+
+    def core(state: TrainState, batch: Dict[str, torch.Tensor]):
+        state.optimizer.zero_grad(set_to_none=True)
+        total, metrics = loss_fn(state.model, batch, point_match_weight, collision_weight,
+                                 apply_fn)
+        total.backward()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if group is not None:
+            params = [p for p in state.model.parameters() if p.grad is not None]
+            flat = torch.cat([p.grad.reshape(-1).float() for p in params]
+                             + [torch.stack([v.float() for v in metrics.values()])])
+            dist.all_reduce(flat, group=group)
+            flat = flat / count
+            grads = flat.split([p.numel() for p in params] + [len(metrics)])
+            torch._foreach_copy_([p.grad for p in params],
+                                 [g.view_as(p) for p, g in zip(params, grads)])
+            metrics = dict(zip(metrics, grads[-1].unbind()))
+        state.optimizer.step()
+        _update_ema(state.ema, state.model, ema_decay)
+        return state._replace(step=state.step + 1), metrics
+
+    if prepare_fn is None:
+        return core
+
+    def step(state: TrainState, raw: Dict[str, torch.Tensor], generator_or_draws):
+        if isinstance(generator_or_draws, (int, torch.Generator)):
+            device = next(iter(raw.values())).device
+            batch = prepare_fn(raw, rank_generator(generator_or_draws, index, device))
+        else:
+            batch = prepare_fn(raw, draws=generator_or_draws)
+        return core(state, batch)
+
+    return step
+
+
+def shard_batch(batch: Dict[str, torch.Tensor], mesh=None, data_axis: str = DATA_AXIS
+                ) -> Dict[str, torch.Tensor]:
+    """This rank's block of every array of a global batch, as tensors."""
+    block = shard_leading_axis(dict(batch), mesh, data_axis)
+    return {k: torch.as_tensor(v) for k, v in block.items()}
+
+
+@torch.no_grad()
+def broadcast_state(state: TrainState, mesh=None, data_axis: str = DATA_AXIS) -> None:
+    """Rank 0's parameters (and EMA) to every rank of ``data_axis``, in
+    place; once after init or restore. No-op without a mesh."""
+    group, _, _ = axis_group(mesh, data_axis)
+    if group is None:
+        return
+    src = dist.get_global_rank(group, 0)
+    for module in (state.model, state.ema):
+        if module is not None:
+            for t in module.state_dict().values():
+                dist.broadcast(t, src=src, group=group)

@@ -9,7 +9,8 @@ cloud's robot and obstacle draws), so every returned key must agree to the
 rollout's tolerance, atol 1e-4 (``tests/test_torch_rollout.py``), and
 ``dagger_accept_frac`` exactly. The real collector runs on per-row scenes
 where some relabels are refused (the goal inside a box) and fall back to
-the stored expert step. Then the trainer's actor mode runs on the CPU: 10
+the stored expert step. Then the trainer's actor modes run on the CPU, the
+synthetic one and the hdf5 one (real-scene collects on a dataset): 10
 steps with collects at steps 3, 6 and 9 (the counterpart of
 ``tests/test_trainer_cli.py::test_trainer_actor_learner_mode``).
 """
@@ -212,10 +213,35 @@ def test_trainer_actor_learner_mode(tmp_path):
 
 
 def test_hdf5_actor_mode_names_the_data_tools(tmp_path):
-    cfg = tconfig.load_config(None, {"save_checkpoint_dir": str(tmp_path)})
-    cfg.rollout.actor_interval = 3
-    with pytest.raises(NotImplementedError, match="A.*11.*make_real_dagger_collector"):
-        Trainer(cfg, device="cpu")
+    """The hdf5 actor mode runs (the counterpart of the JAX trainer's real
+    actor, ``mpinets_tpu/train/trainer.py:298-362``): 10 steps on a
+    dataset the JAX package's writer wrote, real-scene collects on training
+    trajectories at steps 3, 6 and 9, each logging ``dagger_accept_frac``
+    with the actor keys."""
+    from mpinets_tpu.data import writer as jwriter
+
+    jwriter.write_synthetic_dataset(tmp_path / "data", "train", num_trajectories=6, seed=0)
+    jwriter.write_synthetic_dataset(tmp_path / "data", "val", num_trajectories=4, seed=1)
+    cfg = tconfig.load_config(None, {
+        "data": {"num_robot_points": 64, "num_obstacle_points": 96, "num_target_points": 32,
+                 "data_dir": str(tmp_path / "data")},
+        "model": {"sa_npoints": [16, 8], "sa_nsamples": [8, 8]},
+        "optim": {"batch_size": 2, "bf16": False},
+        "rollout": {"val_rollout_length": 3, "actor_interval": 3, "actor_rollout_steps": 2,
+                    "dagger_opt_steps": 5},
+        "max_val_problems": 4, "save_checkpoint_dir": str(tmp_path)})
+    trainer = Trainer(cfg, test=True, should_checkpoint=False, device="cpu")
+    state = trainer.run()
+    assert state.step == 13          # 10 offline steps + 3 actor steps (at steps 3, 6, 9)
+    rows = [json.loads(line) for line in open(trainer.ckpt_dir / "metrics.jsonl")]
+    actor = [r for r in rows if "actor_val_loss" in r]
+    assert [r["step"] for r in actor] == [3, 6, 9]
+    keys = {"actor_val_loss", "actor_point_match_loss", "actor_collision_loss",
+            "actor_hinge_active_frac", "actor_env_steps_per_s", "actor_learner_samples_per_s",
+            "dagger_accept_frac"}
+    for r in actor:
+        assert keys <= set(r) and all(np.isfinite(r[k]) for k in keys)
+        assert 0.0 <= r["dagger_accept_frac"] <= 1.0
 
 
 def test_collectors_need_a_card_or_cpu(models, monkeypatch):

@@ -1,9 +1,15 @@
 """The port's trainer: EMA, the config loader (against the JAX
 package's), train checkpoints on the JAX package's directory layout, and
-the trainer on the CPU at ``tests/test_trainer_cli.py``'s tiny sizes.
+the trainer on the CPU at ``tests/test_trainer_cli.py``'s tiny sizes: the
+synthetic and the hdf5 data modes (a dataset the JAX package's writer
+wrote; validation problems held equal to the val split's, targets within
+1e-6 of JAX's FK), and both on two gloo ranks, whose parameters must end
+equal.
 """
 
 import json
+import shutil
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -19,6 +25,17 @@ from mpinets_torch.model.policy import MotionPolicyNetwork  # noqa: E402
 from mpinets_torch.train import learner as tlearner  # noqa: E402
 from mpinets_torch.train.trainer import Trainer  # noqa: E402
 from mpinets_tpu.cli import config as jconfig  # noqa: E402
+from mpinets_tpu.data import writer as jwriter  # noqa: E402
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads while this module runs: the suite runs files in
+    parallel workers, where more threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
 
 NPOINTS = (16, 8)
 TINY = dict(
@@ -28,6 +45,35 @@ TINY = dict(
     rollout=dict(val_rollout_length=3),
     max_val_problems=8,
 )
+
+
+@pytest.fixture(scope="module")
+def dataset(tmp_path_factory):
+    """A train and a val split written by the JAX package's writer (as
+    ``tests/test_trainer_cli.py::test_trainer_hdf5_smoke``)."""
+    root = tmp_path_factory.mktemp("data")
+    jwriter.write_synthetic_dataset(root, "train", num_trajectories=8, seed=0)
+    jwriter.write_synthetic_dataset(root, "val", num_trajectories=8, seed=1)
+    return root
+
+
+@pytest.fixture(scope="module", autouse=True)
+def two_rank_runs(tmp_path_factory, dataset):
+    """Both data modes on two gloo ranks each (``tests/torch_dist_worker.py``),
+    started with the module so that they run beside its other tests:
+    mode -> (workdir, wait)."""
+    from torch_dist_worker import launch
+
+    runs = {}
+    for mode in ("synthetic", "hdf5"):
+        work = tmp_path_factory.mktemp(f"ranks_{mode}")
+        overrides = {**TINY, "optim": dict(TINY["optim"], batch_size=2),
+                     "save_checkpoint_dir": str(work / "ckpt"), "synthetic": mode == "synthetic"}
+        if mode == "hdf5":
+            overrides["data"] = {**TINY["data"], "data_dir": str(dataset)}
+        (work / "config.json").write_text(json.dumps(overrides))
+        runs[mode] = (work, launch("trainer", work))
+    return runs
 
 
 def test_ema_update():
@@ -168,22 +214,87 @@ def test_trainer_stops_at_its_time_budget(tmp_path, capsys):
     assert tckpt.checkpoint_step(trainer.ckpt_dir / "last") == 0
 
 
-def test_trainer_refuses_unported_modes(tmp_path):
-    cfg = _tiny_config(tmp_path)
-    cfg.data.synthetic = False
-    with pytest.raises(NotImplementedError, match="A.*11"):
-        Trainer(cfg, device="cpu")
-    cfg = _tiny_config(tmp_path)
-    cfg.data.synthetic = False
-    cfg.rollout.actor_interval = 3
-    with pytest.raises(NotImplementedError, match="hdf5 actor mode.*A.*11"):
-        Trainer(cfg, device="cpu")
+def test_trainer_refuses_unported_modes(tmp_path, dataset):
+    """Every data mode is ported: the hdf5 mode and the hdf5 actor mode
+    build (they run in the tests below and in ``test_torch_actor.py``).
+    What the trainer still refuses: a card that is absent (device='cpu'
+    names the plain path), and the plain policy on ``cuda``."""
+    for actor_interval in (0, 3):
+        cfg = _tiny_config(tmp_path, data={**TINY["data"], "data_dir": str(dataset)})
+        cfg.data.synthetic = False
+        cfg.rollout.actor_interval = actor_interval
+        trainer = Trainer(cfg, device="cpu", should_log=False)
+        assert (trainer.world, trainer.global_batch, trainer.host_batch) == (1, 1, 1)
+        assert trainer.mesh is None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Trainer(_tiny_config(tmp_path))
     else:
         with pytest.raises(ValueError, match="fused=False"):
             Trainer(_tiny_config(tmp_path), fused=False)
+
+
+
+
+def test_trainer_hdf5_mode_validates_on_the_val_split(tmp_path, dataset):
+    """The counterpart of ``tests/test_trainer_cli.py::test_trainer_hdf5_smoke``:
+    10 steps on the train split, validation problems from the val split
+    (the JAX package's FK of each trajectory's last configuration), best and
+    last checkpoints, and a resume."""
+    from mpinets_tpu.data import hdf5 as jhdf5
+    from mpinets_tpu.kernels import kinematics as jkin
+
+    data = dataset
+    cfg = _tiny_config(tmp_path, data={**TINY["data"], "data_dir": str(data)})
+    cfg.data.synthetic = False
+    trainer = Trainer(cfg, test=True, device="cpu")
+    problems = trainer._val_problems()
+    ref = jhdf5.TrajectoryDataset(data, dataset_type=jhdf5.DatasetType.VAL).read_trajectory_batch(
+        np.arange(3))
+    np.testing.assert_array_equal(problems.q0.numpy(), ref["raw_configuration"])
+    np.testing.assert_array_equal(problems.scene.cuboid_quats.numpy(), ref["cuboid_quats"])
+    np.testing.assert_allclose(problems.target_trans.numpy(),
+                               np.asarray(jkin.eff_pose(ref["raw_goal"])[1]), atol=1e-6)
+    state = trainer.run()
+    assert state.step == 10
+    rows = [json.loads(line) for line in open(trainer.ckpt_dir / "metrics.jsonl")]
+    assert [r["step"] for r in rows if "avg_target_error" in r] == [2, 4, 6, 8, 10]
+    assert any("val_loss" in r for r in rows)
+    assert all(np.isfinite(v) for r in rows for v in r.values())
+    assert tckpt.checkpoint_step(trainer.ckpt_dir / "last") == 10
+    assert 0 < tckpt.checkpoint_step(trainer.ckpt_dir / "best") <= 10
+    cfg2 = _tiny_config(tmp_path, data={**TINY["data"], "data_dir": str(data)},
+                        resume_from=str(trainer.ckpt_dir))
+    cfg2.data.synthetic = False
+    resumed = Trainer(cfg2, test=True, should_log=False, device="cpu")
+    assert resumed.run().step == 20
+    for exp in (trainer.ckpt_dir, resumed.ckpt_dir):   # two runs' checkpoints, ~0.9 GB
+        shutil.rmtree(exp)
+
+
+@pytest.mark.parametrize("mode", ["synthetic", "hdf5"])
+def test_trainer_on_two_ranks(two_rank_runs, mode):
+    """Two gloo ranks, 10 steps and a resume from rank 0's ``last``: both
+    ranks end each run with equal parameters, and only rank 0 writes."""
+    tmp_path, wait = two_rank_runs[mode]
+    ranks = wait()
+    for run, step in ((0, 10), (1, 20)):
+        a, b = (r[run] for r in ranks)
+        assert a["step"] == b["step"] == step and a["global_batch"] == 4
+        assert a["ckpt_dir"] == b["ckpt_dir"]
+        for k, v in a["params"].items():
+            assert torch.equal(v, b["params"][k]), (run, k)
+        exp = Path(a["ckpt_dir"])
+        assert tckpt.checkpoint_step(exp / "last") == step
+        rows = [json.loads(line) for line in open(exp / "metrics.jsonl")]
+        assert sum("avg_target_error" in r for r in rows) == 5   # one writer, not two
+    assert sorted(p.name for p in (tmp_path / "ckpt").iterdir()) == sorted(
+        Path(r["ckpt_dir"]).name for r in ranks[0])
+    assert not any(ranks[0][0]["params"][k].equal(v) for k, v in ranks[0][1]["params"].items()
+                   if v.dim() > 1)   # the resumed run went on training
+    for r in range(2):   # the checkpoints and the ranks' parameters: ~1 GB
+        (tmp_path / f"out_{r}.pt").unlink()
+    shutil.rmtree(tmp_path / "ckpt")
 
 
 def test_validation_metrics_match_jax_on_a_standing_policy():

@@ -53,8 +53,26 @@ draws) -> ``make_data_parallel_step`` with the kernel forward at B=10 and
 gradients held against it), the all-reduce timed alone,
 ``make_sharded_success_stats`` on the validation split (held against the
 plain rollout on the same draws), one hdf5-actor collect and its DP step,
-and ``Trainer.run`` in hdf5 mode where ``h5py`` imports. Last it drives the
-TPU probe session
+and ``Trainer.run`` in hdf5 mode where ``h5py`` imports. After the
+evaluation come the real weights: the committed orbax checkpoint
+``checkpoints/r5_ft_best_ema`` read without JAX through
+``cli.infer.load_params``, the forward at full widths (B=8) held against
+the plain versions (f32 kernel path against the plain policy within 2e-5 +
+1e-4 x |dq|, bf16 kernel path against its plain path within 2% of max
+|dq|), ``cli.serve --checkpoint`` answering 3 requests, ``cli.infer`` on the
+evaluation's 64 problems in bf16 exact and ``--fp32`` (seconds and success
+share printed; ``fps``, ``sa_select``, ``sa`` and ``sa_f32`` launched), and
+``python -m mpinets_torch.eval.compare`` on a run's metric pickle against
+itself (exit 0, a gate) and on bf16 against ``--fp32`` (its report
+printed, a measurement); then the evaluation extras: ``eval.calibration``
+at 2,048 samples with the bank proxy, and with the hull proxy at inflates
+0.9, 1.0 and 1.1 on a synthetic gripper mesh the script writes (a check of
+the code path; a missing mesh must be refused), each on the card and on the
+CPU with the same draws (flags equal wherever a clearance is more than 1e-5
+from its threshold; summaries and both times printed), and ``gen tabletop
+--visualize-scene`` on the card, whose page's spheres and end-effector path
+must lie within 1e-4 of the CPU's FK of the same trajectory. Last it drives
+the TPU probe session
 (``mpinets_torch.probes.session``, what ``python -m mpinets_torch.probes``
 runs): each probe kernel of ``csrc/probes.cu`` against its plain version at
 the scripts' full shapes and on the scan's edge cases, then timed by the
@@ -203,6 +221,31 @@ def plain_ops(ops):
             mock.patch.object(ops, "furthest_point_sample_with_coords",
                               lambda xyz, npoint, impl="v1": ops.fps_plain(xyz, npoint)):
         yield
+
+
+def plain_policy_path(model, pc, q, cdt, fast=0, bf16_cloud=False):
+    """The kernel path's function from the kernels' plain versions (FPS,
+    the SA stage) and ``fused.tail``, in row slices."""
+    import torch
+
+    from mpinets_torch.kernels import ops
+    from mpinets_torch.model import fused
+
+    w0, w1 = fused.sa_weights(model, cdt)
+    radii = [size["radius"] for size in fused.stage_sizes(model)]
+
+    def fwd(p, q_):
+        x, f = p[..., :3].contiguous(), p[..., 3:].contiguous()
+        if bf16_cloud:
+            x = x.to(torch.bfloat16)
+        _, c0 = ops.fps_plain(x, 512)
+        chunks = ops.chunk_window(x, c0, fast) if fast else None
+        f0_, _ = ops.sa_plain(x.float(), f, c0.float(), w0, radii[0], chunks)
+        _, c1 = ops.fps_plain(c0, 128)
+        f1_, _ = ops.sa_plain(c0.float(), f0_, c1.float(), w1, radii[1])
+        return fused.tail(model, c1.float(), f1_, q_, cdt)
+    with torch.no_grad():
+        return by_rows(fwd, pc, q)
 
 
 def rel_l2(a, b):
@@ -1638,6 +1681,279 @@ def run_data_parallel(smi, dev, planned, count_path):
     return summary
 
 
+# ---- the real weights on the card: the committed orbax checkpoint -----------
+CHECKPOINT = "checkpoints/r5_ft_best_ema"   # the JAX package's orbax tree, bf16 (beside this file)
+REAL_B = 8                # batch of the forward gates, full widths
+REAL_F32_ATOL, REAL_F32_RTOL = 2e-5, 1e-4   # f32 kernel path vs plain policy (the CPU tests' gate)
+REAL_RUNS = (             # cli.infer on the evaluation phase's 64 problems: label, flags, kernels
+    ("bf16, exact", ["--batch-size", "32"], ("fps", "sa_select", "sa")),
+    ("--fp32", ["--fp32", "--batch-size", "32"], ("fps", "sa_select", "sa_f32")),
+)
+
+
+def run_real_weights(smi, dev, count_path):
+    """The trained weights through the entry points a user calls: read the
+    orbax directory without JAX (``cli.infer.load_params``), hold the
+    forward at full widths against the plain versions, serve 3 requests
+    (``cli.serve --checkpoint``), evaluate the problem set in bf16 and f32
+    (``cli.infer``), and compare the metric pickles
+    (``python -m mpinets_torch.eval.compare``). -> summary."""
+    import pickle
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from mpinets_torch.cli import infer, serve
+    from mpinets_torch.data import problems as P
+    from mpinets_torch.data.synthetic import random_configuration, random_problem_batch
+    from mpinets_torch.geom.assembly import assemble_point_cloud
+    from mpinets_torch.kernels import kinematics, ops
+    from mpinets_torch.model import fused
+    from mpinets_torch.model.policy import MotionPolicyNetwork
+    from mpinets_torch.robot import franka
+    from mpinets_torch.utils.normalization import normalize_franka_joints
+
+    root = Path(__file__).resolve().parent
+    ckpt = root / CHECKPOINT
+    summary = {}
+    t0 = time.perf_counter()
+    params = infer.load_params(ckpt)
+    summary["load_s"] = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in params.values())
+    if not 19_000_000 < n_params < 19_300_000 or len(params) != 46:
+        raise AssertionError(f"real weights: {len(params)} tensors, {n_params} parameters")
+    log(f"real weights: {ckpt.name} read without JAX in {summary['load_s']:.2f} s: "
+        f"{len(params)} tensors, {n_params} parameters")
+
+    models = {}
+    for cdt in (torch.float32, torch.bfloat16):
+        m = MotionPolicyNetwork(compute_dtype=cdt, device="cpu")
+        m.load_state_dict(params)
+        models[cdt] = m.to(dev).eval()
+    g = torch.Generator(dev).manual_seed(SEED + 11)
+    problem = random_problem_batch(g, REAL_B, device=dev)
+    with torch.no_grad():
+        pc = assemble_point_cloud(problem.q0, problem.target_rot, problem.target_trans,
+                                  problem.scene, generator=g)
+        q = normalize_franka_joints(problem.q0)
+        oracle = models[torch.float32](pc, q)
+    kern32 = fused.fused_policy_apply(models[torch.float32], pc, q, compute_dtype=torch.float32)
+    err32 = float((kern32 - oracle).abs().max())
+    log(f"real weights, B={REAL_B}, 6272 points, SA 512/128: f32 kernel path vs plain policy "
+        f"max |dq err| {err32:.3e}, max |dq| {float(oracle.abs().max()):.4f}")
+    if not torch.allclose(kern32, oracle, atol=REAL_F32_ATOL, rtol=REAL_F32_RTOL):
+        raise AssertionError(f"real weights: f32 forward error {err32}")
+    kern16 = fused.fused_policy_apply(models[torch.bfloat16], pc, q,
+                                      compute_dtype=torch.bfloat16)
+    ref16 = plain_policy_path(models[torch.bfloat16], pc, q, torch.bfloat16)
+    err16, scale = float((kern16 - ref16).abs().max()), float(ref16.abs().max())
+    log(f"real weights: bf16 kernel path vs plain path max |dq err| {err16:.3e} "
+        f"({err16 / max(scale, 1e-3):.4f} of max |dq| {scale:.4f}); bf16 vs f32 plain "
+        f"{float((kern16 - oracle).abs().max()):.3e}")
+    if not (torch.isfinite(kern16).all() and err16 <= FWD_BF16_TOL * max(scale, 1e-3)):
+        raise AssertionError(f"real weights: bf16 forward error {err16}")
+    summary["forward"] = {"f32_err": err32, "bf16_err": err16, "max_dq": scale}
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_real_") as tmp:
+        tmp = Path(tmp)
+        np.save(tmp / "scan.npy", tabletop_scan(np.random.default_rng(SEED)))
+        requests = []
+        for _ in range(3):
+            q0 = random_configuration(g, (), dev)
+            pos, quat = kinematics.eff_pose_quat(random_configuration(g, (), dev))
+            requests.append(json.dumps({"q0": q0.tolist(), "target_position": pos.tolist(),
+                                        "target_quaternion": quat.tolist()}))
+        out = io.StringIO()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with mock.patch.object(sys, "stdin", io.StringIO("\n".join(requests) + "\n")), \
+                contextlib.redirect_stdout(out):
+            serve.main(["--checkpoint", str(ckpt), str(tmp / "scan.npy")])
+        torch.cuda.synchronize()
+        summary["serve_s"] = time.perf_counter() - t0
+        count_path("server, real weights", ("fps", "sa_select", "sa"))
+        lo, hi = franka.JOINT_LIMITS[:, 0] - 1e-4, franka.JOINT_LIMITS[:, 1] + 1e-4
+        answers = [json.loads(line) for line in out.getvalue().splitlines()]
+        if len(answers) != 3:
+            raise AssertionError(f"server, real weights: {len(answers)} answers to 3 requests")
+        for resp in answers:
+            traj = np.asarray(resp.get("trajectory", []))
+            if traj.shape != (resp.get("num_steps", -2) + 1, 7) or not (
+                    np.isfinite(traj).all() and (traj >= lo).all() and (traj <= hi).all()):
+                raise AssertionError(f"server, real weights: bad answer {sorted(resp)}")
+        summary["serve"] = [(r["success"], r["num_steps"]) for r in answers]
+        log(f"server, real weights: 3 requests in {summary['serve_s']:.2f} s (loading "
+            f"included), (success, steps) {summary['serve']} [{smi}]")
+
+        P.save_problems(tmp / "problems.pkl", eval_problem_set(np.random.default_rng(SEED + 7)))
+        pickles = {}
+        for label, flags, kernels in REAL_RUNS:
+            out_dir = tmp / f"metrics_{len(pickles)}"
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                ev = infer.main([str(ckpt), str(tmp / "problems.pkl"), "all", "all",
+                                 "--save-metrics", str(out_dir), *flags])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            count_path(f"evaluation, real weights, {label}", kernels)
+            pickles[label] = out_dir / "mpinets_torch_eval_metrics.pkl"
+            with open(pickles[label], "rb") as f:
+                saved = pickle.load(f)
+            success = [bool(s) for group in saved.values() for s in group["success"]]
+            if len(success) != 2 * EVAL_GROUP:
+                raise AssertionError(f"evaluation, real weights, {label}: {len(success)} rows")
+            rows = {k: {m: float(ev.metrics(gr)[m]) for m in ("success", "env collision", "1 cm")}
+                    for k, gr in saved.items()}
+            summary[label] = {"seconds": seconds, "success_share": float(np.mean(success)),
+                              "groups": rows}
+            log(f"evaluation, real weights, {label}: {len(success)} problems in {seconds:.2f} s "
+                f"(loading included), success share {np.mean(success):.4f}; by group {rows} "
+                f"[{smi}]")
+
+        def compare(a, b):
+            return subprocess.run([sys.executable, "-m", "mpinets_torch.eval.compare", str(a),
+                                   str(b)], capture_output=True, text=True, cwd=root,
+                                  timeout=300)
+        same = compare(pickles["bf16, exact"], pickles["bf16, exact"])
+        log(f"eval.compare, the bf16 run against itself: exit {same.returncode}\n"
+            + same.stdout.strip())
+        if same.returncode != 0:
+            raise AssertionError(f"eval.compare of a pickle with itself exited {same.returncode}"
+                                 f": {same.stderr.strip()[-2000:]}")
+        cross = compare(pickles["bf16, exact"], pickles["--fp32"])
+        if cross.returncode not in (0, 1):
+            raise AssertionError(f"eval.compare failed: {cross.stderr.strip()[-2000:]}")
+        log(f"eval.compare, bf16 (ours) against --fp32 (theirs), a measurement: exit "
+            f"{cross.returncode}\n" + cross.stdout.strip())
+        summary["compare_bf16_vs_fp32_exit"] = cross.returncode
+    return summary
+
+
+# ---- the evaluation extras: calibration and the viewer --------------------
+CAL_SAMPLES = 2048        # calibration's command-line size
+CAL_NEAR = 1e-5           # card and CPU flags are compared where the clearance is farther
+                          # than this from its threshold
+VIEW_TOL = 1e-4           # the viewer's DATA (4 decimals) against the CPU's FK
+
+
+def write_stl(path):
+    """A synthetic binary STL in the right_gripper frame at the real
+    gripper's extents (a box hand, two box fingers): it checks the hull
+    path, it is no calibration (``tests/test_torch_eval_extras.py`` writes
+    the same mesh)."""
+    import struct
+
+    import numpy as np
+
+    def box(lo, hi):
+        (x0, y0, z0), (x1, y1, z1) = lo, hi
+        v = np.array([[x, y, z] for x in (x0, x1) for y in (y0, y1) for z in (z0, z1)])
+        quads = [(0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1), (2, 3, 7, 6), (0, 2, 6, 4),
+                 (1, 5, 7, 3)]
+        return [v[[a, b, c]] for a, b, c, d in quads] + [v[[a, c, d]] for a, b, c, d in quads]
+
+    tris = (box((-0.03, -0.1, -0.126), (0.03, 0.1, -0.05))
+            + box((-0.01, 0.06, -0.05), (0.01, 0.1, 0.012))
+            + box((-0.01, -0.1, -0.05), (0.01, -0.06, 0.012)))
+    with open(path, "wb") as f:
+        f.write(b"synthetic gripper".ljust(80, b"\0") + struct.pack("<I", len(tris)))
+        for t in tris:
+            f.write(struct.pack("<12fH", 0.0, 0.0, 0.0, *np.asarray(t, np.float32).ravel(), 0))
+    return str(path)
+
+
+def run_eval_extras(smi, dev):
+    """Calibration (bank, then hull at 0.9, 1.0 and 1.1 on a synthetic
+    mesh) on the card against the CPU on the same draws, a missing mesh
+    refused, and ``gen --visualize-scene`` on the card against the CPU's
+    FK. -> summary."""
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from mpinets_torch.eval import calibration as cal
+    from mpinets_torch.kernels import kinematics
+    from mpinets_torch.pipeline import gen
+
+    summary = {}
+    draws = cal.draw_batches(CAL_SAMPLES, SEED, dev)
+    cpu_draws = [d.to("cpu") for d in draws]
+
+    def card_and_cpu(proxy, inflate, path=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = cal.clearances(draws, proxy, inflate, path)   # ends with the copy to the host
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = cal.clearances(cpu_draws, proxy, inflate, path)
+        cpu_s = time.perf_counter() - t0
+        near = {}
+        for name, a, b in (("sphere", card[0], cpu[0]), (proxy, card[1], cpu[1])):
+            far = (np.abs(a) > CAL_NEAR) & (np.abs(b) > CAL_NEAR)
+            if not np.array_equal((a < 0)[far], (b < 0)[far]):
+                raise AssertionError(f"calibration {proxy} {inflate}: {name} flags differ, "
+                                     "card vs CPU")
+            near[name] = int((~far).sum())
+        worst = max(float(np.abs(card[i] - cpu[i]).max()) for i in (0, 1))
+        result = cal.summarize(card[0] < 0, card[1] < 0, proxy, inflate)
+        log(f"calibration {proxy} inflate {inflate}: {json.dumps(result)}; card {card_s:.3f} s, "
+            f"CPU {cpu_s:.3f} s; card = CPU away from the threshold (rows within {CAL_NEAR}: "
+            f"{near}), max |clearance card - CPU| {worst:.2e} [{smi}]")
+        return {"summary": result, "card_s": card_s, "cpu_s": cpu_s, "near": near,
+                "max_clearance_diff": worst}
+
+    summary["bank"] = card_and_cpu("bank", 1.0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_extras_") as tmp:
+        tmp = Path(tmp)
+        try:
+            cal.clearances(draws[:1], "hull", 1.0, str(tmp / "absent.stl"))
+        except FileNotFoundError as e:
+            log(f"calibration hull with a missing mesh: refused ({e})")
+        else:
+            raise AssertionError("calibration hull ran without its mesh")
+        stl = write_stl(tmp / "gripper.stl")
+        log("calibration hull on a synthetic gripper mesh: a check of the code path, not a "
+            "calibration (the reference's mesh is not in the repository)")
+        for inflate in (0.9, 1.0, 1.1):
+            summary[f"hull_{inflate}"] = card_and_cpu("hull", inflate, stl)
+
+        captured = {}
+        real_write = gen.write_html
+
+        def spy(path, trajectory, **kw):
+            captured["traj"] = trajectory
+            return real_write(path, trajectory, **kw)
+
+        printed = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mock.patch.object(gen, "write_html", spy), contextlib.redirect_stdout(printed):
+            gen.main(["tabletop", "--output", str(tmp / "gen"), "--visualize-scene",
+                      str(tmp / "scene.html")])
+        seconds = time.perf_counter() - t0
+        traj = captured["traj"]
+        if traj.device.type != "cuda" or traj.shape != (50, 7):
+            raise AssertionError(f"viewer: trajectory {tuple(traj.shape)} on {traj.device}")
+        html = (tmp / "scene.html").read_text()
+        data = json.loads(html.split("const DATA = ", 1)[1].split(";\nconst views", 1)[0])
+        with torch.no_grad():
+            spheres = kinematics.collision_spheres(traj.cpu()).numpy()
+            ee = kinematics.eff_pose(traj.cpu())[1].numpy()
+        err = max(float(np.abs(np.asarray(data["spheres"]) - spheres).max()),
+                  float(np.abs(np.asarray(data["ee"]) - ee).max()))
+        plan_line = next(line for line in printed.getvalue().splitlines() if "valid=" in line)
+        log(f"viewer: gen tabletop --visualize-scene on the card in {seconds:.2f} s; "
+            f"{plan_line}; DATA vs the CPU's FK max |err| {err:.2e} (gate {VIEW_TOL}) [{smi}]")
+        if not err <= VIEW_TOL:
+            raise AssertionError(f"viewer: DATA differs from the CPU's FK by {err}")
+        summary["viewer"] = {"seconds": seconds, "plan": plan_line, "max_err": err}
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -1968,22 +2284,6 @@ def main() -> int:
     # ---- 2. full-width forward: kernel path against the plain paths -------
     phase(f"full-width forward, B={B}")
 
-    def plain_path(cdt, fast, bf16_cloud=False):
-        w0, w1 = sa_w[cdt]
-
-        def fwd(p, q):
-            x, f = p[..., :3].contiguous(), p[..., 3:].contiguous()
-            if bf16_cloud:
-                x = x.to(bf16)
-            _, c0 = ops.fps_plain(x, 512)
-            chunks = ops.chunk_window(x, c0, fast) if fast else None
-            f0_, _ = ops.sa_plain(x.float(), f, c0.float(), w0, stage_radii[0], chunks)
-            _, c1 = ops.fps_plain(c0, 128)
-            f1_, _ = ops.sa_plain(c0.float(), f0_, c1.float(), w1, stage_radii[1])
-            return fused.tail(model, c1.float(), f1_, q, cdt)
-        with torch.no_grad():
-            return by_rows(fwd, pc, q_norm)
-
     model32 = MotionPolicyNetwork(compute_dtype=f32, device="cpu")
     model32.load_state_dict(model.state_dict())
     model32.to(dev).eval()
@@ -1998,7 +2298,7 @@ def main() -> int:
     for fast, bf16_cloud in ((0, False), (FAST_W, False), (0, True)):
         kern = fused.fused_policy_apply(model, pc, q_norm, compute_dtype=bf16,
                                         fast_grouping=fast, bf16_cloud=bf16_cloud)
-        ref = plain_path(bf16, fast, bf16_cloud)
+        ref = plain_policy_path(model, pc, q_norm, bf16, fast, bf16_cloud)
         if not torch.isfinite(kern).all() or kern.shape != (B, 7):
             raise AssertionError(f"bf16 forward: bad output shape/values {kern.shape}")
         err = (kern - ref).abs().max().item()
@@ -2253,6 +2553,19 @@ def main() -> int:
           "batch-1 timing)")
     eval_summary = run_evaluation(model, smi, count_path)
 
+    phase("real weights on the card: the committed checkpoint through load_params, the "
+          "forward, cli.serve, cli.infer (bf16 exact, --fp32) and eval.compare")
+    t0 = time.perf_counter()
+    real_summary = run_real_weights(smi, dev, count_path)
+    log(f"real weights: the phase took {time.perf_counter() - t0:.1f} s")
+    phase("evaluation extras: calibration (bank; hull on a synthetic mesh) card vs CPU, "
+          "gen --visualize-scene")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    extras_summary = run_eval_extras(smi, dev)
+    log(f"evaluation extras: hand-written kernel launches {dict(ops.LAUNCHES_BY_SHAPE)} "
+        f"(plain torch: FK, the SDFs, cuBLAS); the phase took {time.perf_counter() - t0:.1f} s")
+
     # ---- 4c. scene generation: the IK and the environments -----------------
     phase("scene generation: IK and environments on the card (tabletop, cubby, merged-cubby, "
           "dresser)")
@@ -2352,6 +2665,7 @@ def main() -> int:
                     "train": {str(k): v for k, v in train_rates.items()},
                     "evaluation": eval_summary, "scene_generation": scene_summary,
                     "expert_pipeline": expert_summary, "data_parallel": dp_summary,
+                    "real_weights": real_summary, "evaluation_extras": extras_summary,
                     "card": smi}))
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -13,9 +13,10 @@ Port of ``mpinets_tpu/cli/infer.py``, the reference's evaluator driver
 ``checkpoint`` (:func:`load_params`) is a PyTorch-Lightning ``.ckpt`` or a
 bare state-dict ``.pt`` of the reference's model (converted on load,
 :mod:`mpinets_torch.model.checkpoint`), a flax-layout ``.npz``
-(``save_flax_npz``), or a checkpoint directory of the port's trainer. The
-JAX package's orbax directories are refused: reading them needs JAX, so
-convert one to ``.npz`` on a machine that has it.
+(``save_flax_npz``), a checkpoint directory of the port's trainer, or an
+orbax directory of the JAX package in the OCDBT layout, such as the
+committed ``checkpoints/r5_ft_best_ema`` (read without JAX,
+:mod:`mpinets_torch.model.orbax`).
 
 Whole problem groups run as batched lockstep rollouts on the device, through
 the CUDA kernels on ``cuda`` (:mod:`mpinets_torch.model.fused`); on the CPU,
@@ -43,6 +44,7 @@ from mpinets_torch.data.synthetic import Problem, random_problem_batch
 from mpinets_torch.eval.metrics import Evaluator
 from mpinets_torch.geom import depth
 from mpinets_torch.model import checkpoint as ckpt_mod
+from mpinets_torch.model import orbax
 from mpinets_torch.model.fused import make_fused_apply
 from mpinets_torch.model.policy import MotionPolicyNetwork
 from mpinets_torch.rollout.engine import MAX_ROLLOUT_LENGTH, make_rollout_fn
@@ -60,23 +62,39 @@ DEPTH_POINTS = 4096
 Draws = Callable[[int, Problem], Tuple[torch.Tensor, torch.Tensor]]
 
 
+def _pick_orbax(tree: dict, use_ema: bool) -> dict:
+    """The flax variables of an orbax tree, as the JAX package's
+    ``load_params`` picks them: a saved train state's EMA tree
+    (``use_ema``) or its ``params``; else the tree itself."""
+    if use_ema and tree.get("ema_params") is not None:
+        return tree["ema_params"]
+    if "opt_state" in tree or "step" in tree:
+        return tree["params"]
+    return tree
+
+
 def load_params(path, use_ema: bool = False) -> Dict[str, torch.Tensor]:
     """A :class:`MotionPolicyNetwork` state dict (on the CPU) from a
-    Lightning ``.ckpt`` / state-dict ``.pt``, a flax-layout ``.npz``, or a
-    checkpoint directory of the port's trainer: its newest (``last``, else
-    the highest ``step_*``) or, given ``best``/``last``/``step_*`` itself,
-    that one. ``use_ema`` takes the directory's EMA parameters where it has
-    them. An orbax directory raises ``ValueError``."""
+    Lightning ``.ckpt`` / state-dict ``.pt``, a flax-layout ``.npz``, an
+    orbax OCDBT directory of the JAX package, or a checkpoint directory of
+    the port's trainer: its newest (``last``, else the highest ``step_*``)
+    or, given ``best``/``last``/``step_*`` itself, that one. ``use_ema``
+    takes the directory's EMA parameters where it has them. An orbax
+    directory in another layout raises ``ValueError``."""
     p = Path(path)
     if not p.is_dir():
         if p.suffix == ".npz":
             return ckpt_mod.params_from_flax(ckpt_mod.load_flax_npz(p))
         return ckpt_mod.params_from_flax(ckpt_mod.load_torch_checkpoint(p))
     step_dir = ckpt_mod.latest_checkpoint(p) or p
+    for d in dict.fromkeys((step_dir, p)):
+        if orbax.is_ocdbt_checkpoint(d):
+            return ckpt_mod.params_from_flax(_pick_orbax(orbax.load_tree(d), use_ema))
     if any((d / m).exists() for d in {p, step_dir} for m in ORBAX_MARKERS):
         raise ValueError(
-            f"{p} is an orbax checkpoint, which only the JAX package reads. Convert it on a "
-            "machine with JAX: mpinets_torch.model.checkpoint.save_flax_npz(path, "
+            f"{p} is an orbax checkpoint without an OCDBT manifest, which only the JAX "
+            "package reads. Convert it on a machine with JAX: "
+            "mpinets_torch.model.checkpoint.save_flax_npz(path, "
             "mpinets_tpu.cli.infer.load_params(dir, model)), then pass the .npz")
     state = step_dir / "state.pt"
     if not state.exists():

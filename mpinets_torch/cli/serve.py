@@ -34,7 +34,8 @@ or with the weights named by an option::
 
 ``CHECKPOINT`` (the same as ``--checkpoint``) is what
 :func:`mpinets_torch.cli.infer.load_params` reads (a Lightning ``.ckpt``, a
-``.npz`` or a trainer directory), as the JAX server loads through its
+``.npz``, a trainer directory or the JAX package's orbax directory, such as
+``checkpoints/r5_ft_best_ema``), as the JAX server loads through its
 ``cli.infer.load_params``; ``WEIGHTS.npz`` holds flax-layout weights
 (:func:`mpinets_torch.model.checkpoint.save_flax_npz`). ``--no-fused`` runs
 the plain policy instead of the kernel path.
@@ -176,7 +177,8 @@ def main(argv=None) -> None:
     src = ap.add_mutually_exclusive_group()
     src.add_argument("--weights", help="flax-layout weights .npz")
     src.add_argument("--checkpoint", metavar="PATH", dest="checkpoint_opt",
-                     help="a Lightning .ckpt, a .npz or a trainer checkpoint directory")
+                     help="a Lightning .ckpt, a .npz, a trainer checkpoint directory or an "
+                          "orbax directory")
     src.add_argument("--random-init", type=int, metavar="SEED",
                      help="random weights made from SEED")
     ap.add_argument("checkpoint", nargs="?", help="the same as --checkpoint")

@@ -12,7 +12,8 @@ tree), so no JAX is needed:
 
 Arrays are converted to float32 (the committed checkpoint is bf16; the
 upcast is exact). ``.npz`` files carry the flax tree flattened with "/"
-keys, the format ``cli.serve`` reads.
+keys, the format ``cli.serve`` reads; bf16 leaves are kept there as their
+``uint16`` bits, half the bytes of f32.
 
 The reference's published PyTorch-Lightning checkpoint
 (``mpinets_hybrid_expert.ckpt``, its ``MotionPolicyNetwork`` of
@@ -92,15 +93,24 @@ def flax_from_params(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     return {"params": params}
 
 
+def _npz_leaf(v) -> np.ndarray:
+    """bfloat16 as its ``uint16`` bits (numpy has no bf16 of its own);
+    anything else as float32."""
+    arr = np.asarray(v)
+    return arr.view(np.uint16) if arr.dtype.name == "bfloat16" else arr.astype(np.float32)
+
+
 def save_flax_npz(path, variables: Mapping[str, Any]) -> None:
-    """Write a flax variables tree (numpy leaves) as one ``.npz``."""
-    flat = {"/".join(p): np.asarray(v).astype(np.float32)
-            for p, v in _flatten(variables.get("params", variables))}
-    np.savez(path, **flat)
+    """Write a flax variables tree (numpy leaves) as one ``.npz``: as
+    float32, or a bfloat16 tree as its bits, compressed."""
+    flat = {"/".join(p): _npz_leaf(v) for p, v in _flatten(variables.get("params", variables))}
+    bits = any(v.dtype == np.uint16 for v in flat.values())
+    (np.savez_compressed if bits else np.savez)(path, **flat)
 
 
 def load_flax_npz(path) -> Dict[str, Any]:
-    """Read :func:`save_flax_npz`'s file back into ``{"params": {...}}``."""
+    """Read :func:`save_flax_npz`'s file back into ``{"params": {...}}``
+    (``uint16`` leaves, bf16 bits, widened to float32 exactly)."""
     params: Dict[str, Any] = {}
     with np.load(path) as data:
         for key in data.files:
@@ -108,7 +118,10 @@ def load_flax_npz(path) -> Dict[str, Any]:
             node = params
             for name in parents:
                 node = node.setdefault(name, {})
-            node[leaf] = data[key]
+            arr = data[key]
+            if arr.dtype == np.uint16:
+                arr = (arr.astype(np.uint32) << 16).view(np.float32)
+            node[leaf] = arr
     return {"params": params}
 
 

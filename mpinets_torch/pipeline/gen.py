@@ -18,6 +18,7 @@ CLI::
     python -m mpinets_torch.pipeline.gen {tabletop|cubby|merged-cubby|dresser}
         --output DIR [--num-scenes N] [--candidates-per-scene K] [--neutral]
         [--for-inference PKL] [--seed S] [--device cpu]
+    python -m mpinets_torch.pipeline.gen tabletop --output DIR --visualize-scene OUT.html
 
 Runs on ``cuda`` unless ``--device cpu``. Prints per-scene and overall
 valid-plan rates (the reference's error-code tallies,
@@ -42,6 +43,7 @@ from mpinets_torch.data import writer
 from mpinets_torch.data.process import merge_files
 from mpinets_torch.envs import ENVIRONMENTS
 from mpinets_torch.envs.base import Environment
+from mpinets_torch.eval.visualize import write_html
 from mpinets_torch.kernels import kinematics
 from mpinets_torch.pipeline import expert
 from mpinets_torch.utils.device import resolve_device
@@ -278,6 +280,40 @@ def gen(
     return total
 
 
+def visualize_scene(scene_type: str, out_html, seed: int = 0, device=None,
+                    plan_kwargs: dict | None = None) -> expert.PlanResult:
+    """The reference's ``test-environment`` mode analog
+    (``gen_data.py:798-815`` ``visualize_single_env`` + the CLI mode at
+    ``:1089-1098``): generate one scene (at most 10 attempts), plan its two
+    demo candidates on ``device`` (default ``cuda``) with the planner's own
+    draws (``plan_kwargs`` go to :func:`expert.plan_pair_optimized`), and
+    write the trajectory + primitives to a standalone HTML viewer
+    (:mod:`mpinets_torch.eval.visualize`, the PyBullet-GUI stand-in).
+    Returns the plan (one pair)."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    env = ENVS[scene_type](device=device)
+    for _ in range(10):
+        if env.gen(rng):
+            break
+    else:
+        raise SystemExit("could not generate a valid scene in 10 attempts")
+    a, b = env.demo_candidates[0], env.demo_candidates[1]
+
+    def row(x):
+        return torch.as_tensor(np.asarray(x, np.float32)[None], device=device)
+
+    res = expert.plan_pair_optimized(row(a.config), row(b.config), row(b.pose.matrix[:3, :3]),
+                                     row(b.pose.position), env._unbatched_scene(),
+                                     **(plan_kwargs or {}))
+    print(f"scene generated; demo plan valid={bool(res.valid[0])} "
+          f"(family code {int(res.which[0])})")
+    path = write_html(out_html, res.trajectory[0], cuboids=env.cuboids, cylinders=env.cylinders,
+                      target_position=np.asarray(b.pose.position))
+    print(f"wrote {path}")
+    return res
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -289,14 +325,14 @@ def main(argv=None) -> None:
     ap.add_argument("--for-inference", default=None, metavar="PKL")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--visualize-scene", default=None, metavar="HTML",
-                    help="test-environment mode (gen_data.py:798-815,1089-1098); needs "
-                         "eval/visualize.py, which is not ported (ROADMAP.md A14)")
+                    help="test-environment mode (gen_data.py:798-815,1089-1098): generate "
+                         "ONE scene, plan its demo pair, and write an interactive HTML "
+                         "trajectory viewer instead of a dataset")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.visualize_scene:
-        raise NotImplementedError(
-            "--visualize-scene needs eval/visualize.py, which is not ported yet "
-            "(ROADMAP.md queue A item 14)")
+        visualize_scene(args.scene_type, args.visualize_scene, args.seed, device=args.device)
+        return
     gen(
         args.scene_type, args.output,
         num_scenes=args.num_scenes,

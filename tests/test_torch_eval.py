@@ -420,9 +420,13 @@ def test_load_params_npz_and_trainer_directories(tmp_path):
             assert torch.equal(plain[k], v) and torch.equal(ema[k], state.ema.state_dict()[k]), k
 
 
-def test_load_params_refuses_orbax_naming_the_npz_route():
+def test_load_params_refuses_orbax_naming_the_npz_route(tmp_path):
+    """An orbax directory without an OCDBT manifest (which the port reads,
+    ``tests/test_torch_checkpoint.py``) is refused, naming the ``.npz``
+    route."""
+    (tmp_path / "_CHECKPOINT_METADATA").write_text("{}")
     with pytest.raises(ValueError, match=r"orbax.*\.npz"):
-        infer.load_params(REPO / "checkpoints" / "r5_ft_best_ema")
+        infer.load_params(tmp_path)
 
 
 # ---------------------------------------------------------------------------

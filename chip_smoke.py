@@ -81,7 +81,14 @@ Then it times every kernel at each (batch, cloud, centroids) shape the main
 paths launched it at, against its plain version there, with its bound from
 that input's data, and prints launches x (ms - bound ms) summed over each
 kernel's shapes; then the f32 CUDA-core MLP (``sa_f32``) at B=1, 3, 32 and
-256 the same way, beside three cuBLAS f32 products over its packed rows.
+256 the same way, beside three cuBLAS f32 products over its packed rows,
+and its fast SA0 and v3 variants at B=32 and 256.
+Last, the port bench (``python -m mpinets_torch.bench``, called in-process
+at its defaults, ``--fast-grouping 0``, ``--sa-impl v3``, ``--sweep`` and
+``--profile``): each run's last line checked (a rate above 0, its config,
+the card) and its kernels launched, every kernel held against its plain
+version at each shape the sweep launched that no main path did (B=512, and
+B=64 outside the train path), its launches kept out of the main paths'.
 
 Any failed phase raises, so the script exits non-zero. It also exits
 non-zero, printing no result, when there is no CUDA device or when the
@@ -1954,6 +1961,109 @@ def run_eval_extras(smi, dev):
     return summary
 
 
+# The port bench's runs: (label, argv, kernels each must launch, kernels it
+# must not, its config beside BENCH_CONFIG).
+BENCH_CONFIG = {"sa_impl": "v8", "fast_grouping": FAST_W, "fps_impl": "v1", "batch": B,
+                "fused": True, "bf16_cloud": False, "compute_dtype": "bfloat16",
+                "device": "cuda"}
+BENCH_RUNS = (
+    ("defaults", [], ("fps", "sa_select", "sa", "sa_fast"), ("sa_v3",), {}),
+    ("--fast-grouping 0", ["--fast-grouping", "0"], ("fps", "sa_select", "sa"),
+     ("sa_fast", "sa_v3"), {"fast_grouping": 0}),
+    ("--sa-impl v3", ["--sa-impl", "v3"], ("fps", "sa_select", "sa_v3", "sa_fast"), ("sa",),
+     {"sa_impl": "v3"}),
+    ("--sweep", ["--sweep"], ("fps", "sa_select", "sa", "sa_fast"), ("sa_v3",),
+     {"batch": 512}),
+)
+
+
+def run_port_bench(smi, dev, main_launches, sa_w, radii):
+    """``mpinets_torch.bench.main`` in-process (``BENCH_RUNS``): each run's
+    last line parsed and checked, each run's kernels launched; every
+    (kernel, B, N, S) the sweep launched that ``main_launches`` does not
+    hold, held against its plain version by ``time_at_shape`` on a 512-row
+    cloud; ``--profile`` leaving its trace. The bench's launches stay out of
+    ``main_launches``. -> summary."""
+    from collections import Counter
+    from pathlib import Path
+
+    import torch
+
+    from mpinets_torch import bench
+    from mpinets_torch.data.synthetic import random_problem_batch
+    from mpinets_torch.geom.assembly import assemble_point_cloud
+    from mpinets_torch.kernels import ops
+
+    bf16 = torch.bfloat16
+    nb = max(bench.SWEEP_BATCHES)
+    log(f"  launch plans at B={nb}: fps 6272->512 {ops.fps_plan(nb, 6272)} "
+        f"{ops.fps_plan_info(6272, 512, ops.fps_plan(nb, 6272), bf16)}, 512->128 "
+        f"{ops.fps_plan(nb, 512)}; sa_select SA1 {ops.sa_select_plan(nb, 512, 128)}; "
+        f"sa_fast SA0 {ops.sa_launch_plan(sa_w[bf16][0], 1, nb, 512, fast=True)}; "
+        f"sa SA1 {ops.sa_launch_plan(sa_w[bf16][1], 64, nb, 128)}")
+
+    def run(label, argv):
+        ops.reset_launches()
+        out, stdout = io.StringIO(), sys.stdout
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(stdout):
+            bench.main(argv)
+        seconds = time.perf_counter() - t0
+        line = out.getvalue().strip().splitlines()[-1]
+        log(f"port bench {label}: {seconds:.1f} s; launches "
+            f"{ {k: v for k, v in ops.LAUNCHES.items() if v} }; {line}")
+        return json.loads(line), dict(ops.LAUNCHES_BY_SHAPE)
+
+    summary, launched = {}, {}
+    for label, argv, kernels, absent, config in BENCH_RUNS:
+        res, launched[label] = run(label, argv)
+        if res.get("metric") != "env_steps_per_s_per_chip" or not res["value"] > 0:
+            raise AssertionError(f"port bench {label}: {res}")
+        if "vs_baseline" in res or res["card"] != smi:
+            raise AssertionError(f"port bench {label}: keys {sorted(res)}, card {res['card']}")
+        if res["config"] != {**BENCH_CONFIG, **config}:
+            raise AssertionError(f"port bench {label}: config {res['config']}")
+        for k in kernels:
+            if not ops.LAUNCHES[k]:
+                raise AssertionError(f"port bench {label}: kernel {k} was not launched")
+        for k in absent:
+            if ops.LAUNCHES[k]:
+                raise AssertionError(f"port bench {label}: kernel {k} was launched")
+        summary[label] = {k: res[k] for k in ("value", "median", "rates")}
+    log(f"port bench launches by (kernel, B, N, S), kept out of the main paths' totals: "
+        + json.dumps({label: {" ".join(map(str, k)): v for k, v in sorted(shapes.items())}
+                      for label, shapes in launched.items()}))
+
+    sweep = launched["--sweep"]
+    new = sorted(k for k in sweep if k not in main_launches)
+    log(f"port bench: the sweep's shapes no main path launched: {new}")
+    if not {k[0] for k in new if k[1] == nb} >= {"fps", "sa_select", "sa", "sa_fast"}:
+        raise AssertionError(f"port bench: the sweep's B={nb} shapes {new}")
+    problem = random_problem_batch(torch.Generator(dev).manual_seed(SEED + 16), nb, device=dev)
+    with torch.no_grad():
+        pc = assemble_point_cloud(problem.q0, problem.target_rot, problem.target_trans,
+                                  problem.scene, generator=torch.Generator(dev).manual_seed(SEED))
+    xyz, feat = pc[..., :3].contiguous(), pc[..., 3:].contiguous()
+    summary["new_shapes"] = [time_at_shape(key, sweep[key], {}, xyz, feat, sa_w, radii, smi)
+                             for key in new]
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as tmp:
+        run("--profile", ["--profile", tmp, "--repeats", "1"])
+        trace = Path(tmp) / f"rollout_b{B}_{STEPS_SHORT}steps.json"
+        if not trace.is_file():
+            raise AssertionError(f"port bench --profile: no trace in {sorted(Path(tmp).iterdir())}")
+        names = [e["name"] for e in json.loads(trace.read_text())["traceEvents"]
+                 if e.get("cat") == "kernel"]
+        hits = Counter(k for name in names
+                       for k in ("fps_kernel", "sa_select_kernel", "sa_kernel_mma") if k in name)
+        log(f"port bench --profile: {trace.name}, {trace.stat().st_size} bytes, "
+            f"{len(names)} device kernel events; the port's kernels {dict(hits)}")
+        if not hits["fps_kernel"]:
+            raise AssertionError("port bench --profile: the trace holds no FPS kernel")
+    log(json.dumps({"port_bench": summary, "card": smi}))
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -2633,7 +2743,7 @@ def main() -> int:
         + "; ".join(f"{k} {v:.1f}" for k, v in rank.most_common()) + f" [{smi}]")
 
     phase("sa_f32 (the CUDA-core MLP) at B=1, 3, 32 and 256: vs plain, bound, and three cuBLAS "
-          "f32 products over the same packed rows (TF32 off)")
+          "f32 products over the same packed rows (TF32 off); its fast SA0 and v3 at B=32, 256")
     for b_ in (1, 3, 32, B):
         for stage, (n_, s_) in enumerate(((6272, 512), (512, 128))):
             key = ("sa_f32", b_, n_, s_)
@@ -2647,6 +2757,17 @@ def main() -> int:
             cublas = cuda_ms(lambda: x @ mats[0] @ mats[1] @ mats[2], 5)
             log(f"  cuBLAS, three f32 products over the {packed} packed rows of sa_f32 B={b_} "
                 f"N={n_} S={s_}: {cublas:.4f} ms [{smi}]")
+    # its fast SA0 and off-cloud (v3) variants, which PERF.md's table lists
+    for b_ in (32, B):
+        for key in (("sa_fast_f32", b_, 6272, 512), ("sa_v3_f32", b_, 6272, 512),
+                    ("sa_v3_f32", b_, 512, 128)):
+            time_at_shape(key, main_launches.get(key, 0), inputs, xyz, feat, sa_w, stage_radii, smi)
+
+    phase("port bench: python -m mpinets_torch.bench in-process (defaults, --fast-grouping 0, "
+          "--sa-impl v3, --sweep, --profile); the sweep's new shapes vs plain")
+    t0 = time.perf_counter()
+    bench_summary = run_port_bench(smi, dev, main_launches, sa_w, stage_radii)
+    log(f"port bench: the phase took {time.perf_counter() - t0:.1f} s")
 
     for r in probe_times:
         if not r["launches"]:
@@ -2666,6 +2787,7 @@ def main() -> int:
                     "evaluation": eval_summary, "scene_generation": scene_summary,
                     "expert_pipeline": expert_summary, "data_parallel": dp_summary,
                     "real_weights": real_summary, "evaluation_extras": extras_summary,
+                    "port_bench": {k: v for k, v in bench_summary.items() if k != "new_shapes"},
                     "card": smi}))
     log(smi)
     log(json.dumps({"kernels": kernels}))

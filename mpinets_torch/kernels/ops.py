@@ -368,6 +368,12 @@ def furthest_point_sample_with_coords(
     return idx, coords.to(xyz.dtype)
 
 
+def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+    """FPS indices only (:func:`furthest_point_sample_with_coords`), the
+    counterpart of ``mpinets_tpu/kernels/pallas_ops.py:223``."""
+    return furthest_point_sample_with_coords(xyz, npoint)[0]
+
+
 # ---------------------------------------------------------------------------
 # Fused set-abstraction stage
 # ---------------------------------------------------------------------------

@@ -163,3 +163,9 @@ class MotionPolicyNetwork(nn.Module):
         for i in range(3):
             x = F.leaky_relu(dense(getattr(self, f"decoder_{i}"), x, cdt), 0.01)
         return dense(self.decoder_3, x, cdt).float()
+
+
+def make_policy(compute_dtype=None, device=None) -> MotionPolicyNetwork:
+    """A :class:`MotionPolicyNetwork` computing in ``compute_dtype`` (f32 when
+    None), as ``mpinets_tpu/model/policy.py:167`` makes it."""
+    return MotionPolicyNetwork(compute_dtype=compute_dtype or torch.float32, device=device)

@@ -24,6 +24,7 @@ Sources of the numeric constants (all public):
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -312,3 +313,20 @@ SELF_COLLISION_PAIRS = _self_collision_pairs()
 SELF_COLLISION_THRESH = (
     SPHERE_RADII[SELF_COLLISION_PAIRS[:, 0]] + SPHERE_RADII[SELF_COLLISION_PAIRS[:, 1]]
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class FrankaConstants:
+    """The limit, origin and sphere tables in one bundle (numpy arrays), as
+    ``mpinets_tpu/robot/franka.py:317`` bundles them."""
+
+    joint_limits: np.ndarray = dataclasses.field(default_factory=lambda: JOINT_LIMITS)
+    real_joint_limits: np.ndarray = dataclasses.field(
+        default_factory=lambda: REAL_JOINT_LIMITS
+    )
+    joint_origins: np.ndarray = dataclasses.field(default_factory=lambda: JOINT_ORIGINS)
+    sphere_frames: np.ndarray = dataclasses.field(default_factory=lambda: SPHERE_FRAMES)
+    sphere_centers: np.ndarray = dataclasses.field(
+        default_factory=lambda: SPHERE_CENTERS
+    )
+    sphere_radii: np.ndarray = dataclasses.field(default_factory=lambda: SPHERE_RADII)

@@ -35,6 +35,8 @@ from mpinets_torch.utils.normalization import (
 
 #: Eval-time maximum rollout length (run_inference.py:55).
 MAX_ROLLOUT_LENGTH = 150
+#: Validation rollout length (model.py:272).
+VAL_ROLLOUT_LENGTH = 69
 #: Success tolerances (run_inference.py:179-187, metrics.py:514-519).
 POS_TOLERANCE = 0.01       # 1 cm
 ORI_TOLERANCE_DEG = 15.0   # 15 degrees

@@ -75,8 +75,14 @@ must lie within 1e-4 of the CPU's FK of the same trajectory. Last it drives
 the TPU probe session
 (``mpinets_torch.probes.session``, what ``python -m mpinets_torch.probes``
 runs): each probe kernel of ``csrc/probes.cu`` against its plain version at
-the scripts' full shapes and on the scan's edge cases, then timed by the
-scripts' long-minus-short loop, with SA0 exact timed beside the scan stages.
+the scripts' full shapes, on the scan's edge cases and on a cloud whose
+centroids pass 128 hits early, then timed by the scripts' long-minus-short
+loop, with SA0 exact timed beside the scan stages; each scan mode's time is
+printed beside its bound, the share of it reached, its time recorded
+before the redesign (``SCAN_WAS_MS``; the log line only), and its
+instantiation's registers, spills and blocks a SM (a spill fails the build
+phase). Bounds count the distance tests' uncontracted
+f32 operations at the card's non-FMA rate (``session.F32_NOFMA_OPS``).
 Then it times every kernel at each (batch, cloud, centroids) shape the main
 paths launched it at, against its plain version there, with its bound from
 that input's data, and prints launches x (ms - bound ms) summed over each
@@ -102,7 +108,9 @@ over the main paths (an FPS entry also has its ``plan``, [threads, points a
 thread, cluster], and ``ns_per_pick``, ``ms`` over npoint - 1 picks);
 a probe kernel has one entry per timed probe of the session (a scan mode
 stands for every TPU script probe that computes the same function), its
-launches in the timed runs of the probe session.
+launches in the timed runs of the probe session; a scan mode's entry also
+has this run's ``bound_share``, ``registers``, ``spills``,
+``blocks_per_sm`` and ``smem_bytes``.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -173,6 +181,11 @@ TPU_SOURCES = {
 # and :175, onchip_r4a.py:71 and :129) and the scripts' measurements it
 # stands for.
 PROBE_KERNELS = ("probe_scan", "probe_micro", "probe_wide", "probe_scratch")
+# The scan probe's times by mode before its redesign (NVIDIA H100 80GB HBM3,
+# 700.00 W, B=256, N=6272, S=512; PERF.md's table of TPU kernels). Recorded,
+# not measured by this script: only the probe phase's log prints them.
+SCAN_WAS_MS = {"hits": 0.3216, "count": 0.6442, "count_noscan": 0.6499, "slot": 1.0581,
+               "gather": 0.8160, "tile_sum": 0.8402}
 CUDA_SOURCES = {"fps": "mpinets_torch/csrc/fps.cu", "sa_select": "mpinets_torch/csrc/sa.cu",
                 "sa": "mpinets_torch/csrc/sa.cu",
                 "sa_raw": "mpinets_torch/csrc/sa.cu", "sa_v3": "mpinets_torch/csrc/sa.cu",
@@ -308,8 +321,9 @@ def tie_cloud(rng, b, n):
 
 def sa_data_ops(idx, n, chunks, p, widths):
     """Operations this run's data needs for one SA call: f32 distance tests
-    up to the 128th hit (or the whole candidate list) and the MLP over each
-    centroid's max(count, 1) rows. -> (f32 FLOP, MLP FLOP)."""
+    up to the 128th hit (or the whole candidate list), 9 uncontracted
+    operations each, and the MLP over each centroid's max(count, 1) rows.
+    -> (distance operations, MLP FLOP)."""
     import torch
 
     saturated = idx[..., 127] != idx[..., 0]
@@ -406,11 +420,14 @@ def spread_cloud(gen, radius, c, b, dev, spread=SPREAD):
     return xyz, feat, cent.expand(b, -1, -1).contiguous()
 
 
-def bound(nbytes, f32_flops, mlp_flops=0.0, mlp_peak=BF16_FLOPS):
-    from mpinets_torch.probes.session import F32_FLOPS, HBM_BYTES_PER_S
+def bound(nbytes, dist_ops, mlp_flops=0.0, mlp_peak=BF16_FLOPS):
+    """(ms, "bytes" | "operations"): bytes over the memory rate, or the
+    distance tests' uncontracted f32 operations over the card's non-FMA f32
+    rate plus the MLP's FLOP over ``mlp_peak``, whichever is longer."""
+    from mpinets_torch.probes.session import F32_NOFMA_OPS, HBM_BYTES_PER_S
 
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = f32_flops / F32_FLOPS + mlp_flops / mlp_peak
+    t_ops = dist_ops / F32_NOFMA_OPS + mlp_flops / mlp_peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -2093,6 +2110,8 @@ def main() -> int:
     from mpinets_torch.model import fused
     from mpinets_torch.model.fused_train import make_fused_train_apply
     from mpinets_torch.model.policy import MotionPolicyNetwork
+    from mpinets_torch.probes import scan
+    from mpinets_torch.probes import session as probe_session
     from mpinets_torch.robot import franka
     from mpinets_torch.rollout.engine import make_rollout_fn
     from mpinets_torch.train import learner
@@ -2127,6 +2146,7 @@ def main() -> int:
                   *(f"sa_kernel<tr={tr}, raw={r}, point0={p0}, fast={f}>"
                     for tr in (4, 8) for r, p0, f in variants),
                   *(f"sa_select_kernel<{cpw}>" for cpw in (1, 2, 4)),
+                  *(f"probe_scan_kernel<{m}>" for m in range(len(scan.SCAN_MODES))),
                   *(f"fps_kernel<{t}, {p_}, cluster={int(c)}>" for t in ("f32", "bf16")
                     for c in (False, True) for p_ in ((8,) if c else ops.FPS_POINTS_PER_THREAD))):
         res = resources.get(kname, {})
@@ -2707,8 +2727,6 @@ def main() -> int:
     log(f"data-parallel training: the phase took {time.perf_counter() - t0:.1f} s")
 
     # ---- 5. the TPU probe session ----------------------------------------
-    from mpinets_torch.probes import session as probe_session
-
     phase("TPU probes: kernels vs plain, and their times (probes.session, full shape)")
     t0 = time.perf_counter()
     ops.reset_launches()
@@ -2728,6 +2746,25 @@ def main() -> int:
     stages = {r["name"]: r["ms"] for r in probe_times if r["kernel"] == "probe_scan"}
     log(f"SA0 scan stages at B=256, N=6272, S=512, r=0.05 (ms): {stages}; SA0 exact (v8, bf16) "
         f"{sa0_exact['ms']:.4f} ms [{smi}]; the phase took {time.perf_counter() - t0:.1f} s")
+    # the scan kernel by mode: its bound (the non-FMA f32 rate), the share of
+    # it reached, and each instantiation's registers, spills and blocks a SM
+    # at the session's cloud, all of this run; the log also prints the
+    # recorded time before the redesign
+    scan_info = {}
+    for i, mode in enumerate(scan.SCAN_MODES):
+        r = next(r for r in probe_times if r["name"] == f"scan_{mode}")
+        res = resources.get(f"probe_scan_kernel<{i}>", {})
+        plan = scan.scan_plan(probe_session.FULL["n"], mode)
+        scan_info[r["name"]] = info = {
+            "bound_share": r["bound_ms"] / r["ms"],
+            "registers": res.get("registers"),
+            "spills": res.get("spill_stores", 0) + res.get("spill_loads", 0),
+            "blocks_per_sm": plan["blocks_per_sm"], "smem_bytes": plan["smem_bytes"]}
+        log(f"  scan {mode}: {r['ms']:.4f} ms (recorded before the redesign: "
+            f"{SCAN_WAS_MS[mode]:.4f} ms), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {100 * info['bound_share']:.1f}% of it; "
+            f"probe_scan_kernel<{i}>: {info['registers']} registers, {info['spills']} spill "
+            f"bytes, {info['blocks_per_sm']} blocks a SM at {info['smem_bytes']} B [{smi}]")
 
     # ---- 6. each kernel at each shape the main paths launched it at --------
     phase("kernels at the main paths' shapes: vs plain, times and bounds (bf16; _f32: f32)")
@@ -2779,7 +2816,7 @@ def main() -> int:
             "max_abs_err": parity[r["name"]]["max_abs_err"], "ms": r["ms"],
             "plain_ms": parity[r["name"]]["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "stands_for": r["stands_for"],
+            "stands_for": r["stands_for"], **scan_info.get(r["name"], {}),
         })
     log(json.dumps({"env_steps_per_s_median": rate, "env_steps_per_s": rates, "batch": B,
                     "fast_grouping": FAST_W, "compute_dtype": "bfloat16",

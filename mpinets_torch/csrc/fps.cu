@@ -18,9 +18,10 @@
 //    minimum, 3 for the running argmax), then the reduction to one winner
 //    and the barrier between the two, whose latency does not shrink with N.
 //  * At B=256 the rows fill the card, and the instructions per point and
-//    pick bound it: the 9 f32 operations per point over the card's 67
-//    TFLOP/s give 0.11 ms at 6272 -> 512; the 12 instructions a point
-//    go at half the rate that peak counts for an FMA, about 0.3 ms.
+//    pick bound it: the 9 uncontracted f32 operations per point (no FMA)
+//    over the card's non-FMA f32 rate (132 SMs x 128 lanes x 1.98 GHz =
+//    33.45e12 a second) give 0.22 ms at 6272 -> 512; the 12 instructions
+//    a point, about 0.3 ms.
 // The bytes (the cloud read once, the picks written once) are microseconds.
 //
 // Design (one launch; the plan by (B, N) is the caller's, ops.fps_plan):

@@ -20,22 +20,49 @@
 // where n_l(s) is the l-th hit in index order and P(i) = ((x + y) + z) + feat.
 //
 // What bounds it on the H100: the distance tests, B*S*N of them (8.2e8 at
-// B=256, N=6272, S=512; 9 f32 operations each, 0.11 ms at 67 TFLOP/s); the
-// bytes (cloud, centroids, [B, S, 128] out) are 93 MB, 0.028 ms. Design: one
-// block of 8 warps per (batch row, tile of 32 centroids); the block stages
-// the row's cloud as x[N], y[N], z[N], feat[N] f32 in shared memory (100 KB
-// at N=6272: 2 blocks per SM), so the scan reads no global memory. Each warp
-// scans for 4 centroids at once, so each point read from shared memory is
-// tested against 4 centroids (shared-memory traffic a quarter of one warp per
-// centroid). Per chunk, a lane tests 4 points (lanes lane + 32k) and
-// __ballot_sync gives four 32-bit hit masks per centroid. That makes the
-// TPU's stages 2-4 cheap: the in-chunk prefix count is a __popc of a masked
-// mask (the TPU's prefix matmul), the cross-chunk scan a running count in a
-// register (the TPU's log-step roll scan over chunk rows), the slot search a
-// popc bisection of one mask (the TPU's 7-round binary search over the
-// counts), and the compacted gather one shared-memory read. Lane owns output
-// lanes lane + 32k. The tile sum of kTileSum is a block reduction: each warp
-// sums its 4 centroids, then 128 threads sum the 8 warps in order.
+// B=256, N=6272, S=512). Each is 8 uncontracted f32 operations and a
+// compare, 9 issue slots and no FMA, so the floor is 9 B S N over the card's
+// non-FMA f32 rate (132 SMs x 128 lanes x 1.98 GHz = 33.45e12 a second):
+// 0.221 ms. The bytes (cloud, centroids, [B, S, 128] out) are 93 MB, 0.028 ms.
+//
+// Design: one block of 8 warps per (batch row, tile of 32 centroids); the
+// block stages the planes the scan reads, x[N], y[N], z[N], in shared memory
+// (75 KB at N=6272: three blocks a SM), so the scan reads no global memory;
+// feat, which only kGather and kTileSum read and only at a hit, is read from
+// global memory there. Each warp scans for 4 centroids at once; per chunk a
+// lane reads its 4 neighbouring points 128 c + 4 lane + j (j < 4) as one
+// float4 a plane and tests each against the 4 centroids: 16 tests for 3
+// shared loads. Everything after a test is per hit, or per chunk and the same
+// for the whole warp:
+//  - kHits, kCount, kCountNoScan: one sign-bit add a test (diff_bits). The
+//    lane keeps H[g][j], its hits at point 4 lane + j over the chunks; kCount
+//    also adds the lane's sum over j of H to T[g] before each chunk, so that
+//    T summed over the warp is sum_c lo_c. At the end, per centroid, one
+//    warp prefix over lanes (__shfl_up_sync): sum_c (hits at lanes <= l of
+//    chunk c) is the inclusive prefix of H over the 128 lanes; kCount adds
+//    sum_c lo_c (__reduce_add_sync), kCountNoScan sum_c tot_c (the warp's
+//    sum of H).
+//  - kSlot, kGather, kTileSum: one funnel shift a test (the sign of
+//    d2 - r2 into bit j of centroid g's 4-bit mask) and one __any_sync a
+//    chunk. Only at a chunk with hits (a warp-uniform branch) does the warp
+//    walk, per centroid, the lanes that hold hits (__ballot_sync, then
+//    __shfl_sync of each one's 4-bit mask) in index order, and the lanes
+//    that own slots lo .. hi - 1 take the hit's lane in the chunk (kSlot)
+//    or P (kGather). kSlot needs no work at empty chunks: slot l < count(s)
+//    gets 127 for each chunk before its hit's chunk c and 0 after it, so its
+//    sum is 127 c + the hit's lane; a slot l >= count(s) gets 127 at every
+//    chunk, 127 nc. Once every centroid of the warp has 128 hits, every
+//    later chunk adds 0 (l < lo_c) and fills no slot, so the warp stops
+//    scanning, as sa_select_kernel does.
+// So a test issues 10 instructions: the 8 of the distance, the subtraction
+// and the add or shift (a compare and a select would make 11-12), and a
+// chunk of 16 tests 3 shared loads and a few more.
+// The sums of kHits, kCount, kCountNoScan and kSlot are integers below 2^24
+// (at most nc N = 2,918,528 at the largest cloud the kernel takes, 19,328
+// points in 151 chunks, where x, y, z fill 227 KB), so integer accumulators
+// converted once at the end equal the plain version's sums.
+// kTileSum is a block reduction in the plain version's order: each warp sums
+// its 4 centroids, then 128 threads sum the 8 warps in order.
 //
 // probe_micro_kernel<kOp> / probe_roll_kernel / probe_prefix_kernel replace
 // scripts/onchip_r3d.py::_micro_kernel: one op repeated `reps` times over
@@ -82,7 +109,10 @@ constexpr int kChunk = 128;       // points per chunk, lanes per row
 constexpr int kTile = 32;         // centroids per block (the TPU's tile_s)
 constexpr int kWarps = 8;
 constexpr int kCpw = kTile / kWarps;  // centroids scanned together by one warp
+constexpr int kLanePts = kChunk / 32; // neighbouring points of a chunk a lane tests
 constexpr int kScanThreads = kWarps * 32;
+constexpr int kMaxScanPoints = 19328; // 151 chunks: x, y, z f32 in 227 KB
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kOutRows = 8;       // rows written per micro block
 constexpr int kRowsPerBlock = 16; // rows per block of the elementwise micro ops
 constexpr int kRollLanes = 4;     // lanes per block of roll_wide
@@ -109,53 +139,62 @@ __device__ __forceinline__ float dist2(float x, float y, float z, float cx, floa
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
 }
 
-// Position of the j-th set bit of m (from 0), for j < popc(m): popc bisection.
-__device__ __forceinline__ int nth_set_bit(unsigned m, int j) {
+// Position of the k-th set bit (from 0) of the 4-bit mask m, for k < popc(m).
+__device__ __forceinline__ int nth_bit4(unsigned m, int k) {
+  const int low = __popc(m & 3u);
   int pos = 0;
-#pragma unroll
-  for (int w = 16; w > 0; w >>= 1) {
-    const int c = __popc(m & ((1u << w) - 1u));
-    if (j >= c) {
-      j -= c;
-      m >>= w;
-      pos += w;
-    }
+  if (k >= low) {
+    k -= low;
+    m >>= 2;
+    pos = 2;
   }
-  return pos;
+  return pos + (k >= (int)(m & 1u) ? 1 : 0);
 }
 
-// Lane of the j-th hit of a chunk whose hit masks (lanes 32k .. 32k + 31) are m.
-__device__ __forceinline__ int lane_of_hit(const unsigned (&m)[4], int j) {
-  int lane = 127;
+// The lane's points 128 c + 4 lane + j of chunk c (one float4 a plane)
+// against the warp's centroids: test(g, j, d2) with each squared distance,
+// j from 3 down to 0.
+template <typename Test>
+__device__ __forceinline__ void test_chunk(const float* cloud, int n, int c, int lane,
+                                           const float (&cx)[kCpw], const float (&cy)[kCpw],
+                                           const float (&cz)[kCpw], Test&& test) {
+  const int p = (c * kChunk) / kLanePts + lane;
+  const float4 x4 = reinterpret_cast<const float4*>(cloud)[p];
+  const float4 y4 = reinterpret_cast<const float4*>(cloud + n)[p];
+  const float4 z4 = reinterpret_cast<const float4*>(cloud + 2 * n)[p];
+  const float xs[kLanePts] = {x4.x, x4.y, x4.z, x4.w};
+  const float ys[kLanePts] = {y4.x, y4.y, y4.z, y4.w};
+  const float zs[kLanePts] = {z4.x, z4.y, z4.z, z4.w};
 #pragma unroll
-  for (int k = 3; k >= 0; --k) {  // the lowest k with j < hits below 32(k + 1)
-    int below = 0;
+  for (int j = kLanePts - 1; j >= 0; --j) {
 #pragma unroll
-    for (int q = 0; q < k; ++q) below += __popc(m[q]);
-    if (j >= below && j < below + __popc(m[k])) lane = 32 * k + nth_set_bit(m[k], j - below);
+    for (int g = 0; g < kCpw; ++g) {
+      test(g, j, dist2(xs[j], ys[j], zs[j], cx[g], cy[g], cz[g]));
+    }
   }
-  return lane;
+}
+
+// The bits of d2 - r2 rounded: the top bit is 1 exactly when d2 < r2 (a
+// difference of two floats is 0 only when they are equal, rounding keeps
+// its sign, and NaN comes out positive). The test is then one sign-bit add
+// (LEA.HI) or one funnel shift (SHF) instead of a compare and a select.
+__device__ __forceinline__ unsigned diff_bits(float d2, float r2) {
+  return __float_as_uint(__fsub_rn(d2, r2));
 }
 
 template <int kMode>
-__global__ void __launch_bounds__(kScanThreads, 2) probe_scan_kernel(ScanArgs a) {
-  extern __shared__ float cloud[];
-  __shared__ float red[kWarps][kChunk];
-  float* sx = cloud;
-  float* sy = cloud + a.n;
-  float* sz = cloud + 2 * a.n;
-  float* sf = cloud + 3 * a.n;
+__global__ void __launch_bounds__(kScanThreads, 3) probe_scan_kernel(ScanArgs a) {
+  extern __shared__ __align__(16) float cloud[];  // x[n], y[n], z[n]
+  const int n = a.n;
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const float* xyz = a.xyz + (size_t)b * a.n * 3;
-  const float* feat = a.feat + (size_t)b * a.n;
-  for (int i = tid; i < a.n; i += kScanThreads) {
-    sx[i] = xyz[3 * i];
-    sy[i] = xyz[3 * i + 1];
-    sz[i] = xyz[3 * i + 2];
-    sf[i] = feat[i];
+  const float* xyz = a.xyz + (size_t)b * n * 3;
+  for (int i = tid; i < n; i += kScanThreads) {
+    cloud[i] = xyz[3 * i];
+    cloud[n + i] = xyz[3 * i + 1];
+    cloud[2 * n + i] = xyz[3 * i + 2];
   }
   const int s0 = blockIdx.x * kTile + warp * kCpw;  // this warp's first centroid
   float cx[kCpw], cy[kCpw], cz[kCpw];
@@ -166,82 +205,124 @@ __global__ void __launch_bounds__(kScanThreads, 2) probe_scan_kernel(ScanArgs a)
     cy[g] = c[1];
     cz[g] = c[2];
   }
-  float acc[kCpw][4];
-  int lo[kCpw];
-#pragma unroll
-  for (int g = 0; g < kCpw; ++g) {
-    lo[g] = 0;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) acc[g][k] = 0.f;
-  }
   __syncthreads();
 
-  const int nc = a.n / kChunk;
-  const unsigned le = 0xffffffffu >> (31 - lane);  // lanes <= mine
-  for (int c = 0; c < nc; ++c) {
-    unsigned m[kCpw][4];
+  const int nc = n / kChunk;
+  float v[kCpw][kLanePts];  // out[b, s0 + g, 4 lane + j]
+  if constexpr (kMode <= kCountNoScan) {
+    // H: the lane's hits at point 4 lane + j of a chunk, over the chunks;
+    // kCount: T, the sum over chunks of the lane's H before the chunk, whose
+    // sum over the warp is sum_c lo_c
+    unsigned hh[kCpw][kLanePts] = {};
+    unsigned tt[kCpw] = {};
+    for (int c = 0; c < nc; ++c) {
+      if constexpr (kMode == kCount) {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int p = c * kChunk + 32 * k + lane;
-      const float x = sx[p], y = sy[p], z = sz[p];
-#pragma unroll
-      for (int g = 0; g < kCpw; ++g) {
-        const bool in = dist2(x, y, z, cx[g], cy[g], cz[g]) < a.r2;
-        if (kMode == kHits) {
-          acc[g][k] += in ? 1.f : 0.f;
-        } else {
-          m[g][k] = __ballot_sync(0xffffffffu, in);
-        }
+        for (int g = 0; g < kCpw; ++g) tt[g] += (hh[g][0] + hh[g][1]) + (hh[g][2] + hh[g][3]);
       }
+      test_chunk(cloud, n, c, lane, cx, cy, cz,
+                 [&](int g, int j, float d2) { hh[g][j] += diff_bits(d2, a.r2) >> 31; });
     }
-    if (kMode == kHits) continue;
 #pragma unroll
     for (int g = 0; g < kCpw; ++g) {
-      int below = 0;  // hits of this chunk at lanes < 32k
-      const int tot = __popc(m[g][0]) + __popc(m[g][1]) + __popc(m[g][2]) + __popc(m[g][3]);
-      const int hi = lo[g] + tot;
+      int h[kLanePts];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int l = 32 * k + lane;
-        if (kMode == kCount || kMode == kCountNoScan) {
-          const int local = below + __popc(m[g][k] & le);
-          acc[g][k] += (float)(local + (kMode == kCount ? lo[g] : tot));
-        } else if (kMode == kSlot) {
-          const int pos = l < lo[g] ? 0 : l >= hi ? 127 : lane_of_hit(m[g], l - lo[g]);
-          acc[g][k] += (float)pos;
-        } else if (l >= lo[g] && l < hi) {  // kGather, kTileSum: slot l lies in chunk c
-          const int q = c * kChunk + lane_of_hit(m[g], l - lo[g]);
-          acc[g][k] = ((sx[q] + sy[q]) + sz[q]) + sf[q];
+      for (int j = 0; j < kLanePts; ++j) h[j] = (int)hh[g][j];
+      if constexpr (kMode == kHits) {
+#pragma unroll
+        for (int j = 0; j < kLanePts; ++j) v[g][j] = (float)h[j];
+      } else {
+        // inclusive prefix of H over lanes 0 .. 4 lane + j: the lane's own,
+        // then over the warp
+#pragma unroll
+        for (int j = 1; j < kLanePts; ++j) h[j] += h[j - 1];
+        int incl = h[kLanePts - 1];
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+          const int t = __shfl_up_sync(kFull, incl, d);
+          if (lane >= d) incl += t;
         }
-        below += __popc(m[g][k]);
+        int base = incl - h[kLanePts - 1];
+        if constexpr (kMode == kCount) {  // + sum_c lo_c
+          base += (int)__reduce_add_sync(kFull, tt[g]);
+        } else {  // + sum_c tot_c
+          base += __shfl_sync(kFull, incl, 31);
+        }
+#pragma unroll
+        for (int j = 0; j < kLanePts; ++j) v[g][j] = (float)(base + h[j]);
       }
-      lo[g] = hi;
+    }
+  } else {
+    int lo[kCpw];  // warp-uniform: hits so far, exact until it reaches 128
+#pragma unroll
+    for (int g = 0; g < kCpw; ++g) {
+      lo[g] = 0;
+#pragma unroll
+      for (int j = 0; j < kLanePts; ++j) v[g][j] = kMode == kSlot ? (float)(127 * nc) : 0.f;
+    }
+    for (int c = 0; c < nc; ++c) {
+      unsigned mine[kCpw] = {};  // bit j: point 4 lane + j is in centroid g's ball
+      test_chunk(cloud, n, c, lane, cx, cy, cz, [&](int g, int j, float d2) {
+        mine[g] = __funnelshift_l(diff_bits(d2, a.r2), mine[g], 1);  // j = 3, 2, 1, 0
+      });
+      if (!__any_sync(kFull, ((mine[0] | mine[1]) | (mine[2] | mine[3])) != 0u)) continue;
+      bool done = true;
+#pragma unroll
+      for (int g = 0; g < kCpw; ++g) {
+        unsigned who = __ballot_sync(kFull, mine[g] != 0u);  // lanes with a hit, in order
+        int r = lo[g];
+        while (who != 0u && r < kChunk) {
+          const int t = __ffs(who) - 1;
+          who &= who - 1u;
+          const unsigned m = __shfl_sync(kFull, mine[g], t);
+          const int hits = __popc(m);
+#pragma unroll
+          for (int j = 0; j < kLanePts; ++j) {  // slots r .. r + hits - 1 are lane t's hits
+            const int k = kLanePts * lane + j - r;
+            if (k >= 0 && k < hits) {
+              const int l = kLanePts * t + nth_bit4(m, k);  // the hit's lane in chunk c
+              if constexpr (kMode == kSlot) {
+                v[g][j] = (float)(127 * c + l);
+              } else {
+                const int q = c * kChunk + l;  // feat is read at the hit only
+                v[g][j] = ((cloud[q] + cloud[n + q]) + cloud[2 * n + q]) +
+                          __ldg(a.feat + (size_t)b * n + q);
+              }
+            }
+          }
+          r += hits;
+        }
+        lo[g] = r;
+        done = done && r >= kChunk;
+      }
+      if (done) break;  // no later chunk changes a slot
     }
   }
 
-  if (kMode == kTileSum) {
+  if constexpr (kMode == kTileSum) {
+    __syncthreads();  // every warp is done with the cloud: reuse it
+    float* red = cloud;  // [kWarps][kChunk]
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      float v = acc[0][k];
+    for (int j = 0; j < kLanePts; ++j) {
+      float t = v[0][j];
 #pragma unroll
-      for (int g = 1; g < kCpw; ++g) v += acc[g][k];
-      red[warp][32 * k + lane] = v;
+      for (int g = 1; g < kCpw; ++g) t += v[g][j];
+      red[warp * kChunk + kLanePts * lane + j] = t;
     }
     __syncthreads();
     if (tid < kChunk) {
-      float v = red[0][tid];
+      float t = red[tid];
 #pragma unroll
-      for (int w = 1; w < kWarps; ++w) v += red[w][tid];
+      for (int w = 1; w < kWarps; ++w) t += red[w * kChunk + tid];
       float* out = a.out + ((size_t)b * a.s + blockIdx.x * kTile) * kChunk;
-      for (int r = 0; r < kTile; ++r) out[r * kChunk + tid] = v;
+      for (int r = 0; r < kTile; ++r) out[r * kChunk + tid] = t;
     }
     return;
   }
 #pragma unroll
   for (int g = 0; g < kCpw; ++g) {
-    float* out = a.out + ((size_t)b * a.s + s0 + g) * kChunk;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) out[32 * k + lane] = acc[g][k];
+    float4* out = reinterpret_cast<float4*>(a.out + ((size_t)b * a.s + s0 + g) * kChunk);
+    out[lane] = make_float4(v[g][0], v[g][1], v[g][2], v[g][3]);
   }
 }
 
@@ -402,26 +483,54 @@ cudaError_t smem_optin(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// The scan kernel of a mode and its dynamic shared memory at n points (the
+// staged planes; kTileSum reuses them for its 8 x 128 reduction), opted in
+// and with shared memory preferred over L1.
+cudaError_t scan_setup(int n, int mode, void (**kernel)(ScanArgs), size_t* smem) {
+  static void (*const kernels[kScanModes])(ScanArgs) = {
+      probe_scan_kernel<kHits>, probe_scan_kernel<kCount>, probe_scan_kernel<kCountNoScan>,
+      probe_scan_kernel<kSlot>, probe_scan_kernel<kGather>, probe_scan_kernel<kTileSum>};
+  if (n < kChunk || n % kChunk || n > kMaxScanPoints || mode < 0 || mode >= kScanModes)
+    return cudaErrorInvalidValue;
+  *kernel = kernels[mode];
+  *smem = sizeof(float) * 3 * (size_t)n;
+  if (mode == kTileSum && *smem < sizeof(float) * kWarps * kChunk)
+    *smem = sizeof(float) * kWarps * kChunk;
+  cudaError_t e = smem_optin(*kernel, *smem);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(*kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
 }  // namespace
 
 extern "C" {
 
 // xyz [b, n, 3], feat [b, n], cent [b, s, 3] f32; out [b, s, 128] f32.
-// n a multiple of 128, s of 32; mode a ScanMode. Returns a cudaError_t.
+// n a multiple of 128 up to 19,328, s of 32; mode a ScanMode. Returns a
+// cudaError_t.
 int mpn_probe_scan(const float* xyz, const float* feat, const float* cent, int b, int n, int s,
                    float r2, int mode, float* out, void* stream) {
-  if (n < kChunk || n % kChunk || s < kTile || s % kTile || b < 1 || b > 65535 || mode < 0 ||
-      mode >= kScanModes)
-    return (int)cudaErrorInvalidValue;
-  static void (*const kernels[kScanModes])(ScanArgs) = {
-      probe_scan_kernel<kHits>, probe_scan_kernel<kCount>, probe_scan_kernel<kCountNoScan>,
-      probe_scan_kernel<kSlot>, probe_scan_kernel<kGather>, probe_scan_kernel<kTileSum>};
-  const size_t smem = 4 * sizeof(float) * (size_t)n;
-  cudaError_t e = smem_optin(kernels[mode], smem);
+  if (s < kTile || s % kTile || b < 1 || b > 65535) return (int)cudaErrorInvalidValue;
+  void (*kernel)(ScanArgs);
+  size_t smem;
+  cudaError_t e = scan_setup(n, mode, &kernel, &smem);
   if (e != cudaSuccess) return (int)e;
   ScanArgs a{xyz, feat, cent, out, n, s, r2};
-  kernels[mode]<<<dim3(s / kTile, b), kScanThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  kernel<<<dim3(s / kTile, b), kScanThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The scan launch of a mode at n points: its dynamic shared memory in bytes
+// and the blocks that fit on one SM. Returns a cudaError_t.
+int mpn_probe_scan_plan(int n, int mode, int* smem_bytes, int* blocks_per_sm) {
+  void (*kernel)(ScanArgs);
+  size_t smem;
+  cudaError_t e = scan_setup(n, mode, &kernel, &smem);
+  if (e != cudaSuccess) return (int)e;
+  *smem_bytes = (int)smem;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kScanThreads,
+                                                            smem);
 }
 
 // a [rows, 128] f32, idx [rows, 128] int32 in [0, 128) (gather only; may be

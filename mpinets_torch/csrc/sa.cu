@@ -36,8 +36,9 @@
 //
 // sa_select_kernel<kCpw> (exact ball query, the scan of pallas_ops.py:
 // 814-891). What bounds it on the H100: the distance tests, up to B*S*N of
-// them (9 f32 operations each: 8.2e8 tests, 0.11 ms at 67 TFLOP/s at
-// B=256, N=6272, S=512, where a centroid keeps about 3.6 points and so
+// them (9 uncontracted f32 operations each, no FMA: 8.2e8 tests, 0.22 ms at
+// the card's 33.45e12 non-FMA f32 operations a second (132 SMs x 128 lanes x
+// 1.98 GHz) at B=256, N=6272, S=512, where a centroid keeps about 3.6 points and so
 // scans the whole cloud); the bytes (cloud, centroids, idx) are a few tens
 // of MB. Design: one block of 8 warps per (batch row, tile of 8 * kCpw
 // centroids) stages the row's cloud as x[N], y[N], z[N] f32 in shared

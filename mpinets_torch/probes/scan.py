@@ -23,10 +23,27 @@ cross-chunk scan). Point ``i = 128 c + l`` is lane ``l`` of chunk ``c``;
 * ``tile_sum`` (r3d stop 4): ``gather``'s value summed over the tile of 32
   centroids that holds ``s``.
 
-N must be a multiple of 128 and S of 32 (the TPU probes' tile).
+N must be a multiple of 128, at most :data:`MAX_POINTS`, and S of 32 (the
+TPU probes' tile).
+
+The kernel (``csrc/probes.cu``) tests each point against each centroid once,
+from a copy of the row's x, y, z in shared memory, and does the rest per
+hit: ``hits``, ``count`` and ``count_noscan`` keep integer per-lane hit
+counts (and, for ``count``, their running sum over the chunks, from which
+``sum_c lo_c`` follows) and take one prefix over the 128 lanes at the end;
+``slot``, ``gather`` and ``tile_sum`` touch lanes only at chunks with hits,
+where slot ``l`` takes its hit (``slot``: ``127 c`` plus the hit's lane,
+``c`` its chunk; a slot past the count ``127 nc``; feat is read there
+only), and a warp stops scanning once its 4 centroids have 128 hits, after
+which no chunk changes a slot. Every sum of ``hits``, ``count``,
+``count_noscan`` and ``slot`` is an integer below ``2**24`` (at most
+``nc * N`` = 2,918,528 at ``MAX_POINTS``), so the kernel's integer
+accumulators, converted once, equal the plain version's sums.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -35,6 +52,8 @@ from mpinets_torch.kernels import ops, pointnet
 SCAN_MODES = ("hits", "count", "count_noscan", "slot", "gather", "tile_sum")
 TILE = 32     # centroids per tile (the probes' tile_s)
 WARPS = 8     # the kernel's warps per tile, each summing 4 centroids first
+#: Largest cloud the kernel stages: x, y, z f32 in 227 KB of shared memory.
+MAX_POINTS = 19328
 
 
 def _check_shapes(xyz, feat, cent, mode):
@@ -45,9 +64,9 @@ def _check_shapes(xyz, feat, cent, mode):
     ops._check(feat, "feat", (torch.float32,), (b, n, 1))
     ops._check(cent, "cent", (torch.float32,), (b, None, 3))
     s = cent.shape[1]
-    if n < ops.CHUNK or n % ops.CHUNK or s < TILE or s % TILE:
-        raise ValueError(f"the scan probe takes N a multiple of {ops.CHUNK} and S of {TILE}; "
-                         f"got N={n}, S={s}")
+    if n < ops.CHUNK or n % ops.CHUNK or n > MAX_POINTS or s < TILE or s % TILE:
+        raise ValueError(f"the scan probe takes N a multiple of {ops.CHUNK} up to {MAX_POINTS} "
+                         f"and S a multiple of {TILE}; got N={n}, S={s}")
     return b, n, s
 
 
@@ -101,3 +120,17 @@ def scan_probe(xyz, feat, cent, radius: float, mode: str) -> torch.Tensor:
                 cent.data_ptr(), b, n, s, ops._r2(radius), SCAN_MODES.index(mode), out.data_ptr())
     ops._count("probe_scan", b, n, s)
     return out
+
+
+def scan_plan(n: int, mode: str):
+    """The kernel's launch for ``mode`` at N points on the current CUDA
+    device: its dynamic shared memory in bytes and the blocks that fit on
+    one SM."""
+    if mode not in SCAN_MODES:
+        raise ValueError(f"unknown scan mode {mode!r}; one of {SCAN_MODES}")
+    out = [ctypes.c_int() for _ in range(2)]
+    rc = ops._library("probes").mpn_probe_scan_plan(n, SCAN_MODES.index(mode),
+                                                    *map(ctypes.byref, out))
+    if rc != 0:
+        raise RuntimeError(f"mpn_probe_scan_plan failed: CUDA error {rc} (N={n}, mode={mode})")
+    return dict(zip(("smem_bytes", "blocks_per_sm"), (v.value for v in out)))

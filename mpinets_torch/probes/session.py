@@ -11,7 +11,8 @@ long-minus-short loop (``onchip_r3b.py:248-265``: 2 and 10 calls, best of
 (``ops.sa_stage``, bf16) at the same shape, so the stages can be read
 beside the kernel they explain. The scan probes are also held against
 their plain version on a small cloud with the scan's edge cases
-(:func:`edge_scan_inputs`). Inputs are made from ``seed`` with a
+(:func:`edge_scan_inputs`) and on one where centroids pass 128 hits early
+(:func:`dense_scan_inputs`). Inputs are made from ``seed`` with a
 ``torch.Generator``.
 
 Each scan mode runs once, for every measurement of the scripts that
@@ -51,9 +52,15 @@ TIMING_BEST_OF = 3
 PLAIN_ROWS = 16          # batch rows per plain scan call, to bound its memory
 SLEEP_CYCLES = 4_000_000  # device busy-wait before a timed loop, so the host's
                           # enqueueing is not what the events measure
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and f32 CUDA-core FLOP/s.
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and f32 CUDA-core FLOP/s
+# (an FMA counted as two).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+# f32 operations a second without FMA: 132 SMs x 128 f32 lanes x 1.98 GHz
+# (the boost clock at which the data sheet's 67e12 counts each FMA as two).
+# The distance tests (__fsub_rn / __fmul_rn / __fadd_rn, never contracted,
+# and a compare) issue one operation a slot at this rate.
+F32_NOFMA_OPS = 132 * 128 * 1.98e9
 
 #: One probe per scan mode: (mode, the scripts' measurements it stands for,
 #: the TPU kernels it replaces). Probes of the scripts that compute the same
@@ -85,10 +92,11 @@ class Probe:
     library: Optional[Callable[[], torch.Tensor]] = None   # one PyTorch call, timed only
     stands_for: Tuple[str, ...] = ()  # the scripts' measurements this probe takes the place of
     timed: bool = True                # False: a check only
+    rate: float = F32_FLOPS           # the card's rate for ``flops`` a second
 
     def bound(self):
         """(ms, "bytes" | "operations"): the least time the card could take."""
-        t_bytes, t_ops = self.nbytes / HBM_BYTES_PER_S, self.flops / F32_FLOPS
+        t_bytes, t_ops = self.nbytes / HBM_BYTES_PER_S, self.flops / self.rate
         return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -133,6 +141,30 @@ def edge_scan_inputs(seed: int = 0, b: int = 2, n: int = 384, s: int = 64):
     return xyz, feat, cent
 
 
+def dense_scan_inputs(seed: int = 0, b: int = 2, n: int = 640, s: int = 64):
+    """A small cloud (numpy, from ``seed``) where centroids pass 128 hits
+    early, r=0.05: row 0 holds 280 points within 0.04 of one centre, 200 of
+    them in chunks 0-1 and the rest in chunks 3 and 4; row 0's centroids 0-4
+    lie within 0.002 of it, so the first warp's four centroids all pass 128
+    hits by chunk 1 and centroid 4 passes 128 beside three that do not; the
+    other centroids are cloud points of chunk 2.
+    -> (xyz [b, n, 3], feat [b, n, 1], cent [b, s, 3]) f32 numpy arrays."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    xyz = rng.uniform(-0.8, 0.8, (b, n, 3)).astype(f32)
+    feat = rng.integers(0, 3, (b, n, 1)).astype(f32)
+    centre = np.array([0.1, 0.2, -0.3], f32)
+    pick = np.r_[rng.choice(256, 200, replace=False), 384 + rng.choice(128, 60, replace=False),
+                 512 + rng.choice(128, 20, replace=False)]
+    d = rng.normal(size=(len(pick), 3))
+    d *= 0.04 * rng.uniform(0, 1, (len(pick), 1)) ** (1 / 3) / np.linalg.norm(d, axis=1,
+                                                                               keepdims=True)
+    xyz[0, pick] = centre + d
+    cent = xyz[:, 260:260 + s].copy()
+    cent[0, :5] = centre + rng.uniform(-0.002, 0.002, (5, 3))
+    return xyz, feat, cent
+
+
 def _scan_probes(xyz, feat, cent, prefix="scan_", timed=True) -> List[Probe]:
     b, n, _ = xyz.shape
     s = cent.shape[1]
@@ -142,7 +174,7 @@ def _scan_probes(xyz, feat, cent, prefix="scan_", timed=True) -> List[Probe]:
                   lambda m=mode: scan.scan_probe(xyz, feat, cent, RADIUS, m),
                   lambda m=mode: _by_rows(lambda x, f, c: scan.scan_plain(x, f, c, RADIUS, m),
                                           xyz, feat, cent),
-                  nbytes, flops, stands_for=stands_for, timed=timed)
+                  nbytes, flops, stands_for=stands_for, timed=timed, rate=F32_NOFMA_OPS)
             for mode, stands_for, replaces in SCAN_PROBES]
 
 
@@ -225,9 +257,13 @@ def make_probes(device, batch: Optional[int] = None, seed: int = 0) -> List[Prob
 
 
 def edge_probes(device, seed: int = 0) -> List[Probe]:
-    """The scan probes, one per mode, on :func:`edge_scan_inputs`; checks only."""
-    xyz, feat, cent = (torch.from_numpy(t).to(device) for t in edge_scan_inputs(seed))
-    return _scan_probes(xyz, feat, cent, prefix="edge_scan_", timed=False)
+    """The scan probes, one per mode, on :func:`edge_scan_inputs` and on
+    :func:`dense_scan_inputs`; checks only."""
+    probes = []
+    for prefix, make in (("edge_scan_", edge_scan_inputs), ("dense_scan_", dense_scan_inputs)):
+        xyz, feat, cent = (torch.from_numpy(t).to(device) for t in make(seed))
+        probes += _scan_probes(xyz, feat, cent, prefix=prefix, timed=False)
+    return probes
 
 
 def _timed(fn):

@@ -803,10 +803,30 @@ def _check_probe(kernel, run, plain):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", scan.SCAN_MODES)
 def test_scan_probe_matches_plain(cuda, mode):
-    """Edge cases: 150 neighbours, none, an empty chunk, points ulps from the sphere."""
-    args = [torch.from_numpy(a) for a in session.edge_scan_inputs(5)]
-    _check_probe("probe_scan", lambda: scan.scan_probe(*(a.to(cuda) for a in args), 0.05, mode),
-                 lambda: scan.scan_probe(*args, 0.05, mode))
+    """Edge cases: 150 neighbours, none, an empty chunk, points ulps from the
+    sphere; then centroids that pass 128 hits early (the warp's stop)."""
+    for make in (session.edge_scan_inputs, session.dense_scan_inputs):
+        args = [torch.from_numpy(a) for a in make(5)]
+        _check_probe("probe_scan",
+                     lambda: scan.scan_probe(*(a.to(cuda) for a in args), 0.05, mode),
+                     lambda: scan.scan_probe(*args, 0.05, mode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", scan.SCAN_MODES)
+def test_scan_probe_plan_and_largest_cloud(cuda, mode):
+    """Three blocks a SM at the session's cloud (x, y, z staged: 75 KB), and
+    the largest cloud the kernel takes launches and equals plain."""
+    plan = scan.scan_plan(6272, mode)
+    assert plan == {"smem_bytes": 12 * 6272, "blocks_per_sm": 3}
+    n = scan.MAX_POINTS
+    gen = torch.Generator().manual_seed(3)
+    xyz = torch.rand(1, n, 3, generator=gen) * 0.2
+    feat = torch.randint(0, 3, (1, n, 1), generator=gen).float()
+    cent = xyz[:, :64].contiguous()
+    _check_probe("probe_scan",
+                 lambda: scan.scan_probe(xyz.to(cuda), feat.to(cuda), cent.to(cuda), 0.05, mode),
+                 lambda: scan.scan_probe(xyz, feat, cent, 0.05, mode))
 
 
 @pytest.mark.cuda

@@ -16,6 +16,13 @@ same numpy-made inputs:
   exact for the counts (stops 1-3, r3c), 1e-6 x max(1, max|out|) for stops
   4-5 (the four channels summed in another order), 1e-5 x max(1, max|out|)
   for r3d's stop 4 (32 centroids summed in another order);
+* a numpy model of the scan kernel's own arithmetic (``csrc/probes.cu``:
+  integer per-lane hit counts and one prefix over the lanes at the end;
+  per-hit slots and gathers with the warp's stop at 128 hits), held
+  against the same TPU kernel bodies on the edge-case cloud and on a cloud
+  whose centroids pass 128 hits in their first chunks -- bit-equal for the
+  counts (stops 1-3, r3c), within the tolerances above for stops 4-5 and
+  r3d's stop 4 -- and bit-equal to the plain versions in every mode;
 * micro-ops at 8 and 32 reps: exact for gather and the rolls, 1e-6 x
   max(1, max|out|) for vadd (XLA may contract it into an FMA), 1e-5 x
   max(1, max|out|) for bd_matmul (the MXU's sum order);
@@ -28,6 +35,7 @@ versions on the card.
 
 import ast
 import functools
+import itertools
 import json
 from pathlib import Path
 
@@ -86,9 +94,23 @@ def _tpu_scan(script, name, xyz, feat, cent, **kw):
     )(planes, cent[..., 0:1], cent[..., 1:2], cent[..., 2:3], _lt128()))
 
 
+SCAN_CASES = {"edge": session.edge_scan_inputs, "dense": session.dense_scan_inputs}
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_case(case):
+    return SCAN_CASES[case](5)
+
+
+@functools.lru_cache(maxsize=None)
+def _tpu_scan_case(case, script, name, **kw):
+    """The TPU kernel's output on ``case``'s cloud, computed once."""
+    return _tpu_scan(script, name, *_scan_case(case), **kw)
+
+
 def _check_scan(script, name, mode, tol, **kw):
-    xyz, feat, cent = session.edge_scan_inputs(5)
-    ref = _tpu_scan(script, name, xyz, feat, cent, **kw)
+    xyz, feat, cent = _scan_case("edge")
+    ref = _tpu_scan_case("edge", script, name, **kw)
     out = scan.scan_probe(*map(torch.from_numpy, (xyz, feat, cent)), 0.05, mode).numpy()
     assert out.shape == ref.shape
     np.testing.assert_allclose(out, ref, rtol=0, atol=tol * max(1.0, np.abs(ref).max()))
@@ -131,6 +153,231 @@ def test_edge_inputs_hold_the_edge_cases():
     assert hit[0, 2][near].any() and (~hit[0, 2][near]).any()
     # a threshold of f32(r) * f32(r) would change the answer
     assert ((d2[0, 2] < r2_f32_product) != hit[0, 2]).any()
+
+
+LANE_PTS = 4    # the kernel's neighbouring points of a chunk a lane tests
+CPW = 4         # the kernel's centroids a warp
+
+
+def _tile_sum(vals):
+    """``vals`` [B, S, 128] summed over each tile of 32 centroids in the
+    kernel's order (each warp its 4 centroids, then the 8 warps in turn),
+    broadcast back to [B, S, 128]."""
+    b, s, _ = vals.shape
+    parts = vals.reshape(b, s // TILE, TILE // CPW, CPW, 128)
+    per_warp = parts[:, :, :, 0]
+    for g in range(1, CPW):
+        per_warp = per_warp + parts[:, :, :, g]
+    tile = per_warp[:, :, 0]
+    for w in range(1, TILE // CPW):
+        tile = tile + per_warp[:, :, w]
+    return np.repeat(tile[:, :, None], TILE, axis=2).reshape(b, s, 128)
+
+
+def _scan_model(xyz, feat, cent, mode):
+    """numpy model of ``probe_scan_kernel``'s arithmetic: lane t of a warp
+    tests points 128 c + 4 t + j (j < 4) of chunk c against the warp's 4
+    centroids, r=0.05.
+
+    * hits, count, count_noscan: H, each lane's integer hit count at point
+      4 t + j over the chunks; for count also T, the sum over chunks of the
+      lane's H before the chunk (the warp's sum of T is sum_c lo_c); then
+      the inclusive prefix of H over the 128 lanes plus sum_c lo_c (count)
+      or all hits (count_noscan).
+    * slot, gather, tile_sum: the lane's 4-bit mask a centroid (bit j for
+      point 4 t + j); only chunks with a hit; per centroid the lanes
+      holding hits in order, slot ``r`` taking the r-th hit until 128:
+      ``127 c + lane`` (slot; slots past the count keep ``127 nc``, the 127
+      of every chunk) or P (gather); the warp stops once its 4 centroids
+      have 128 hits.
+    Every count is an int64 sum, converted to f32 once."""
+    b, n, _ = xyz.shape
+    s = cent.shape[1]
+    nc = n // 128
+    d = xyz[:, None] - cent[:, :, None]                                   # [B, S, N, 3] f32
+    d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+    hit = (d2 < np.float32(0.05 * 0.05)).reshape(b, s, nc, 128 // LANE_PTS, LANE_PTS)
+    if mode in ("hits", "count", "count_noscan"):
+        h = hit.astype(np.int64).sum(2)                                  # H [B, S, lane, j]
+        if mode == "hits":
+            return h.reshape(b, s, 128).astype(np.float32)
+        incl = np.cumsum(h, -1)                      # the lane's own 4 lanes
+        mine = incl[..., -1]
+        below = np.cumsum(mine, -1) - mine           # the warp's lanes before it
+        if mode == "count":
+            per_chunk = hit.astype(np.int64).sum(-1)                     # [B, S, c, lane]
+            t = (np.cumsum(per_chunk, 2) - per_chunk).sum(2)              # T [B, S, lane]
+            base = t.sum(-1)
+        else:
+            base = mine.sum(-1)
+        out = base[..., None, None] + below[..., None] + incl
+        return out.reshape(b, s, 128).astype(np.float32)
+    p = ((xyz[..., 0] + xyz[..., 1]) + xyz[..., 2]) + feat[..., 0]       # [B, N] f32
+    out = np.full((b, s, 128), 127 * nc if mode == "slot" else 0, np.float32)
+    for bi in range(b):
+        for s0 in range(0, s, CPW):
+            lo = [0] * CPW
+            for c in range(nc):
+                bits = hit[bi, s0:s0 + CPW, c]                           # [g, lane, j]
+                if not bits.any():
+                    continue
+                for g in range(CPW):
+                    r = lo[g]
+                    for t in np.flatnonzero(bits[g].any(-1)):
+                        if r >= 128:
+                            break
+                        js = np.flatnonzero(bits[g, t])
+                        for k, j in enumerate(js):
+                            if r + k < 128:
+                                lane = LANE_PTS * t + j
+                                out[bi, s0 + g, r + k] = (127 * c + lane if mode == "slot"
+                                                          else p[bi, 128 * c + lane])
+                        r += len(js)
+                    lo[g] = r
+                if min(lo) >= 128:
+                    break
+    return _tile_sum(out) if mode == "tile_sum" else out
+
+
+# (script, kernel, keyword arguments, the kernel's mode)
+TPU_SCAN_KERNELS = (
+    *(("onchip_r3b.py", "_abl_kernel", dict(stop=stop, fuse_inball=False), mode)
+      for stop, mode in sorted(R3B_MODES.items())),
+    ("onchip_r3b.py", "_abl_kernel", dict(stop=1, fuse_inball=True), "hits"),
+    ("onchip_r3c.py", "_abl2_kernel", dict(with_scan=True), "count"),
+    ("onchip_r3c.py", "_abl2_kernel", dict(with_scan=False), "count_noscan"),
+    ("onchip_r3d.py", "_abl_kernel", dict(stop=3), "slot"),
+    ("onchip_r3d.py", "_abl_kernel", dict(stop=4), "tile_sum"),
+)
+
+
+def _kernel_id(k):
+    script, _, kw, _ = k
+    return script.removesuffix(".py").removeprefix("onchip_") + "-" + "-".join(
+        f"{key}={val}" for key, val in kw.items())
+
+
+# The TPU bodies' gathered P: XLA sums the four planes and the chunks in one
+# reduction whose order follows the hit's chunk (see
+# test_tpu_body_sums_p_in_an_order_that_follows_the_chunk), so P differs from
+# the model's ((x + y) + z) + feat in the last bits; r3d's stop 4 also sums
+# its 32 centroids in another order. The largest gap read on either cloud is
+# 1.19e-7 x max(1, max|out|) (gather, dense; the test prints its readings).
+MODEL_TOL = {"gather": 1e-6, "tile_sum": 1e-6}
+
+
+@pytest.mark.parametrize("kernel", TPU_SCAN_KERNELS, ids=_kernel_id)
+@pytest.mark.parametrize("case", sorted(SCAN_CASES))
+def test_scan_model_matches_tpu_kernel(case, kernel):
+    """The kernel's arithmetic against the TPU kernel body in interpret
+    mode: bit-equal for the counts (hits, count, count_noscan, slot); within
+    ``MODEL_TOL`` x max(1, max|out|) where the TPU body sums P otherwise."""
+    script, name, kw, mode = kernel
+    out = _scan_model(*_scan_case(case), mode)
+    ref = _tpu_scan_case(case, script, name, **kw)
+    tol = MODEL_TOL.get(mode, 0.0)
+    if tol:
+        ulps = np.abs(out.view(np.int32).astype(np.int64) - ref.view(np.int32))
+        print(f"{case} {_kernel_id(kernel)}: {np.count_nonzero(ulps)} values differ, by at most "
+              f"{ulps.max()} ulps, {np.abs(out - ref).max() / max(1.0, np.abs(ref).max()):.3g}"
+              f" x max(1, max|out|)")
+        np.testing.assert_allclose(out, ref, rtol=0, atol=tol * max(1.0, np.abs(ref).max()))
+    else:
+        np.testing.assert_array_equal(out, ref)
+
+
+def _add_trees(leaves=(0, 1, 2, 3)):
+    """Every order of summing ``leaves``: each binary tree over them, up to
+    swapping the operands of an add (f32 addition commutes), with its name."""
+    if len(leaves) == 1:
+        yield leaves[0], "xyzf"[leaves[0]]
+        return
+    for k in range(1, len(leaves)):
+        for left in itertools.combinations(leaves, k):
+            right = tuple(v for v in leaves if v not in left)
+            if left[0] > right[0]:
+                continue
+            for lt, ln in _add_trees(left):
+                for rt, rn in _add_trees(right):
+                    yield (lt, rt), f"({ln}+{rn})"
+
+
+def _add(tree, vals):
+    if isinstance(tree, int):
+        return vals[:, tree]
+    return _add(tree[0], vals) + _add(tree[1], vals)
+
+
+@pytest.mark.parametrize("stop", [4, 5])
+@pytest.mark.parametrize("case", sorted(SCAN_CASES))
+def test_tpu_body_sums_p_in_an_order_that_follows_the_chunk(case, stop):
+    """Why the model is held to r3b's stops 4-5 within a tolerance: each
+    value the TPU body gathers is the hit's four planes x, y, z, feat summed
+    in one of the 15 orders of four adds, one order for all the hits of a
+    chunk; on the dense cloud no one order fits every chunk, so no fixed
+    order of the model's (nor the plain version's) adds can be bit-equal."""
+    xyz, feat, cent = _scan_case(case)
+    ref = _tpu_scan_case(case, "onchip_r3b.py", "_abl_kernel", stop=stop, fuse_inball=False)
+    d = xyz[:, None] - cent[:, :, None]
+    d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+    hit = d2 < np.float32(0.05 * 0.05)
+    planes = np.concatenate([xyz, feat[..., :1]], -1)                    # [B, N, 4] f32
+    trees = list(_add_trees())
+    assert len(trees) == 15
+    fits = {}                                  # chunk -> which orders fit all its hits
+    for bi, si in np.ndindex(*hit.shape[:2]):
+        idx = np.flatnonzero(hit[bi, si])[:128]
+        assert not ref[bi, si, len(idx):].any()
+        got = ref[bi, si, :len(idx)]
+        match = np.stack([_add(t, planes[bi, idx]) == got for t, _ in trees])   # [15, hits]
+        assert match.any(0).all(), "a gathered value is no order of the hit's four planes"
+        for c in np.unique(idx // 128):
+            fits[c] = fits.get(c, True) & match[:, idx // 128 == c].all(1)
+    print(f"{case} stop {stop}: orders by chunk " + "; ".join(
+        f"{c}: {[n for (_, n), ok in zip(trees, f) if ok]}" for c, f in sorted(fits.items())))
+    assert all(f.any() for f in fits.values())
+    if case == "dense":
+        assert not np.logical_and.reduce(list(fits.values())).any()
+
+
+@pytest.mark.parametrize("mode", scan.SCAN_MODES)
+@pytest.mark.parametrize("case", sorted(SCAN_CASES))
+def test_scan_model_matches_plain(case, mode):
+    xyz, feat, cent = _scan_case(case)
+    ref = scan.scan_plain(*map(torch.from_numpy, (xyz, feat, cent)), 0.05, mode).numpy()
+    np.testing.assert_array_equal(_scan_model(xyz, feat, cent, mode), ref)
+
+
+def test_dense_inputs_pass_128_early():
+    """The dense cloud has what the model's stop relies on: the first warp's
+    four centroids pass 128 hits before the last chunk, with hits after it;
+    centroid 4 passes 128 beside three that do not."""
+    xyz, _, cent = _scan_case("dense")
+    dx = xyz[:, None] - cent[:, :, None]
+    d2 = (dx[..., 0] * dx[..., 0] + dx[..., 1] * dx[..., 1]) + dx[..., 2] * dx[..., 2]
+    hit = d2 < np.float32(0.05 * 0.05)
+    nc = xyz.shape[1] // 128
+    running = hit.reshape(*hit.shape[:2], nc, 128).sum(-1).cumsum(-1)     # [B, S, nc]
+    first_full = (running[0, :CPW] >= 128).argmax(-1)
+    assert (running[0, :CPW, -1] >= 128).all() and first_full.max() < nc - 2
+    assert hit[0, :CPW, 128 * (first_full.max() + 1):].any(-1).all()
+    assert running[0, 4, -1] > 128 and (running[0, 5:8, -1] < 128).all()
+    assert (running[..., -1] > 0).all()        # every centroid is a cloud point or near one
+
+
+def test_scan_probe_bound_uses_the_non_fma_rate():
+    """A scan probe's bound at the scripts' shape: 9 B S N uncontracted f32
+    operations (8 of the distance and its compare) over the card's non-FMA
+    f32 rate, 132 SMs x 128 lanes x 1.98 GHz."""
+    b, n, s = 256, 6272, 512
+    xyz, feat = torch.zeros(b, n, 3), torch.zeros(b, n, 1)
+    cent = torch.zeros(b, s, 3)
+    assert session.F32_NOFMA_OPS == pytest.approx(33.45e12, rel=1e-3)
+    for probe in session._scan_probes(xyz, feat, cent):
+        ms, by = probe.bound()
+        assert by == "operations"
+        assert ms == pytest.approx(1e3 * 9 * b * s * n / session.F32_NOFMA_OPS, rel=1e-12)
+        assert ms == pytest.approx(0.2211, abs=1e-4)
 
 
 def _tpu_micro(a, idx, op, reps, rb):
@@ -211,6 +458,9 @@ def test_probe_wrappers_reject_what_the_kernels_do_not_take():
         scan.scan_probe(xyz[:, :300].contiguous(), feat[:, :300].contiguous(), cent, 0.05, "hits")
     with pytest.raises(ValueError, match="multiple"):
         scan.scan_probe(xyz, feat, cent[:, :40].contiguous(), 0.05, "hits")
+    big = scan.MAX_POINTS + 128   # past what the kernel stages in shared memory
+    with pytest.raises(ValueError, match="up to"):
+        scan.scan_probe(torch.zeros(1, big, 3), torch.zeros(1, big, 1), cent[:1], 0.05, "hits")
     with pytest.raises(ValueError, match="unknown scan mode"):
         scan.scan_probe(xyz, feat, cent, 0.05, "stop6")
     a = torch.zeros(196, 128)
@@ -242,6 +492,7 @@ def test_session_runs_on_the_cpu(capsys):
     assert {f"micro_bd_matmul_r{r}_group_sums" for r in session.REPS} <= names
     assert {"wide_gather_b2", "scratch_when"} <= names
     assert sum(n.startswith("edge_") for n in names) == len(scan.SCAN_MODES)
+    assert sum(n.startswith("dense_") for n in names) == len(scan.SCAN_MODES)
     assert all(r["ok"] and r["max_abs_err"] == 0.0 for r in parity)
     assert not [r for r in recs if r["kind"] == "time"]
 

@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``mpinets_torch/csrc/`` (logging each SA and
-FPS instantiation's registers and spills, failing on a spill, and the
-launch plans, and
-counting the tensor-core ``HMMA`` instructions in the built SASS where the
-toolkit has ``cuobjdump``), holds each kernel against its plain PyTorch
+Builds the CUDA kernels from ``mpinets_torch/csrc/`` (logging each SA,
+FPS and probe instantiation's registers and spills, failing on a spill --
+every SA, FPS, scan, roll and micro-op instantiation is gated -- and the
+launch plans, counting the tensor-core ``HMMA`` instructions in the built
+SASS where the toolkit has ``cuobjdump``, and failing unless the roll's rep
+loop at the probe session's rb issues one FADD a held row for each SHFL),
+holds each kernel against its plain PyTorch
 version at the main path's shapes -- FPS (each plan the main paths use, at
 B=1, 3 and 256, on the assembled cloud and on a cloud of exact ties), the
 exact ball query (``sa_select``, also at
@@ -81,8 +83,14 @@ loop, with SA0 exact timed beside the scan stages; each scan mode's time is
 printed beside its bound, the share of it reached, its time recorded
 before the redesign (``SCAN_WAS_MS``; the log line only), and its
 instantiation's registers, spills and blocks a SM (a spill fails the build
-phase). Bounds count the distance tests' uncontracted
-f32 operations at the card's non-FMA rate (``session.F32_NOFMA_OPS``).
+phase); each micro op (gather, the rolls, vadd, bd_matmul) at 8 and 32 reps
+the same way (its kernel's registers, spills, blocks a SM, threads and
+shared memory at the session's rb), and roll_narrow beside the session's
+launch floor (``probe_scratch``). The session also checks the micro ops at
+other layouts (``session.MICRO_EDGE_CASES``: a ragged last thread, rings
+over several warps, reps 0). Bounds count uncontracted f32 operations at
+the card's non-FMA rate (``session.F32_NOFMA_OPS``) and gather's
+shared-memory reads at 32 words a clock a SM (``session.SMEM_WORDS_PER_S``).
 Then it times every kernel at each (batch, cloud, centroids) shape the main
 paths launched it at, against its plain version there, with its bound from
 that input's data, and prints launches x (ms - bound ms) summed over each
@@ -110,7 +118,8 @@ a probe kernel has one entry per timed probe of the session (a scan mode
 stands for every TPU script probe that computes the same function), its
 launches in the timed runs of the probe session; a scan mode's entry also
 has this run's ``bound_share``, ``registers``, ``spills``,
-``blocks_per_sm`` and ``smem_bytes``.
+``blocks_per_sm`` and ``smem_bytes``, and a micro op's this run's
+``bound_share``, ``registers`` and ``spills``.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -352,9 +361,12 @@ def kernel_resources(log_text):
                           r"(?:I(?:Li(\d+)E)?Lb([01])ELb([01])ELb([01])E|ILi(\d+)E)?",
                           m.group(1))
             fps = re.search(r"fps_kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])E", m.group(1))
+            roll = re.search(r"probe_roll_kernelILi(\d+)ELb([01])ELb([01])E", m.group(1))
             full = m.group(1)
             name = (f"fps_kernel<{'f32' if fps.group(1) == 'f' else 'bf16'}, {fps.group(2)}, "
-                    f"cluster={fps.group(3)}>") if fps else full if t is None else t.group(1) + (
+                    f"cluster={fps.group(3)}>") if fps else (
+                f"probe_roll_kernel<{roll.group(1)}, ragged={roll.group(2)}, "
+                f"ring={roll.group(3)}>") if roll else full if t is None else t.group(1) + (
                 f"<{f'tr={t.group(2)}, ' if t.group(2) else ''}raw={t.group(3)}, "
                 f"point0={t.group(4)}, fast={t.group(5)}>"
                 if t.group(3) is not None
@@ -372,10 +384,9 @@ def kernel_resources(log_text):
     return out
 
 
-def sass_hmma(lib):
-    """HMMA instructions per kernel in a built library's SASS (``cuobjdump
-    -sass``), or None where the toolkit has no cuobjdump."""
-    import re
+def sass_text(lib):
+    """A built library's SASS (``cuobjdump -sass``), or None where the
+    toolkit has no cuobjdump."""
     import shutil
     from pathlib import Path
 
@@ -385,8 +396,18 @@ def sass_hmma(lib):
     tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
     if not tool:
         return None
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+    return subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
+
+
+def sass_hmma(lib):
+    """HMMA instructions per kernel in a built library's SASS, or None where
+    the toolkit has no cuobjdump."""
+    import re
+
+    sass = sass_text(lib)
+    if sass is None:
+        return None
     counts, name = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -396,6 +417,53 @@ def sass_hmma(lib):
         elif name and re.search(r"\bHMMA\b", line):
             counts[name] += 1
     return counts
+
+
+def sass_loops(lib, pattern):
+    """The loops of the kernel whose mangled name matches ``pattern`` in a
+    built library's SASS: for each backward branch, the instructions from its
+    target to it, and the FADD and SHFL among them. -> a list of
+    {"instructions", "fadd", "shfl"}, or None where the toolkit has no
+    cuobjdump."""
+    import re
+
+    sass = sass_text(lib)
+    if sass is None:
+        return None
+    insts, labels, branches, inside, pending = [], {}, [], False, []
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            if inside:
+                break
+            inside = re.search(pattern, m.group(1)) is not None
+            continue
+        if not inside:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if not m:
+            continue
+        addr, text = int(m.group(1), 16), m.group(2)
+        for label in pending:
+            labels[label] = addr
+        pending = []
+        insts.append((addr, text))
+        b = re.search(r"\bBRA\b.*?(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))", text)
+        if b:
+            branches.append((addr, b.group(1) or int(b.group(2), 16)))
+    loops = []
+    for addr, target in branches:
+        target = labels.get(target, -1) if isinstance(target, str) else target
+        if 0 <= target <= addr:
+            body = [t for a, t in insts if target <= a <= addr]
+            loops.append({"instructions": len(body),
+                          "fadd": sum(bool(re.search(r"\bFADD\b", t)) for t in body),
+                          "shfl": sum(bool(re.search(r"\bSHFL\b", t)) for t in body)})
+    return loops
 
 
 def spread_cloud(gen, radius, c, b, dev, spread=SPREAD):
@@ -2110,7 +2178,7 @@ def main() -> int:
     from mpinets_torch.model import fused
     from mpinets_torch.model.fused_train import make_fused_train_apply
     from mpinets_torch.model.policy import MotionPolicyNetwork
-    from mpinets_torch.probes import scan
+    from mpinets_torch.probes import micro, scan
     from mpinets_torch.probes import session as probe_session
     from mpinets_torch.robot import franka
     from mpinets_torch.rollout.engine import make_rollout_fn
@@ -2147,11 +2215,25 @@ def main() -> int:
                     for tr in (4, 8) for r, p0, f in variants),
                   *(f"sa_select_kernel<{cpw}>" for cpw in (1, 2, 4)),
                   *(f"probe_scan_kernel<{m}>" for m in range(len(scan.SCAN_MODES))),
+                  *micro.roll_instantiations(),
+                  *(f"probe_micro_kernel<{micro.MICRO_OPS.index(o)}>" for o in ("gather", "vadd")),
                   *(f"fps_kernel<{t}, {p_}, cluster={int(c)}>" for t in ("f32", "bf16")
                     for c in (False, True) for p_ in ((8,) if c else ops.FPS_POINTS_PER_THREAD))):
         res = resources.get(kname, {})
         if res.get("spill_stores", 1) or res.get("spill_loads", 1):
             raise AssertionError(f"{kname} spills (or is missing): {res}")
+    # the roll's rep loop at the session's rb: one FADD a held row and one SHFL
+    # a rep (a loop unrolled k times: k kC FADD and k SHFL)
+    roll_plan = micro.micro_plan(probe_session.FULL["rb"], "roll_wide")
+    kc = roll_plan["rows_per_thread"]
+    loops = sass_loops(ops._target("probes"), rf"probe_roll_kernelILi{kc}ELb0ELb0E")
+    if loops is None:
+        log("cuobjdump not found: the roll's SASS check skipped")
+    else:
+        log(f"{roll_plan['kernel']} SASS loops (instructions, FADD, SHFL): "
+            f"{[(lp['instructions'], lp['fadd'], lp['shfl']) for lp in loops]}")
+        if not any(lp["shfl"] and lp["fadd"] == kc * lp["shfl"] for lp in loops):
+            raise AssertionError(f"{roll_plan['kernel']}: no rep loop with {kc} FADD a SHFL: {loops}")
     hmma = sass_hmma(ops._target("sa"))
     if hmma is None:
         log("cuobjdump not found: HMMA count skipped")
@@ -2766,6 +2848,27 @@ def main() -> int:
             f"probe_scan_kernel<{i}>: {info['registers']} registers, {info['spills']} spill "
             f"bytes, {info['blocks_per_sm']} blocks a SM at {info['smem_bytes']} B [{smi}]")
 
+    # the micro ops: each time beside its bound (the non-FMA rate; gather's
+    # shared-memory words), the share reached, and the kernel's registers,
+    # spills and blocks a SM at the session's rb, all of this run
+    micro_info = {}
+    for op in micro.MICRO_OPS:
+        plan = micro.micro_plan(probe_session.FULL["rb"], op)
+        res = resources.get(plan["kernel"], {})
+        for r in (r for r in probe_times if r["name"].startswith(f"micro_{op}_r")):
+            micro_info[r["name"]] = info = {
+                "bound_share": r["bound_ms"] / r["ms"], "registers": res.get("registers"),
+                "spills": res.get("spill_stores", 0) + res.get("spill_loads", 0)}
+            log(f"  {r['name']}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                f"{100 * info['bound_share']:.1f}% of it; {plan['kernel']}: {info['registers']} "
+                f"registers, {info['spills']} spill bytes, {plan['blocks_per_sm']} blocks a SM of "
+                f"{plan['threads']} threads at {plan['smem_bytes']} B [{smi}]")
+    scratch_ms = next(r["ms"] for r in probe_times if r["kernel"] == "probe_scratch")
+    log("  roll_narrow beside the launch floor (probe_scratch, one block): "
+        + ", ".join(f"{r['name']} {r['ms']:.4f} ms" for r in probe_times
+                    if r["name"].startswith("micro_roll_narrow_r"))
+        + f"; probe_scratch {scratch_ms:.4f} ms [{smi}]")
+
     # ---- 6. each kernel at each shape the main paths launched it at --------
     phase("kernels at the main paths' shapes: vs plain, times and bounds (bf16; _f32: f32)")
     by_shape = dict(main_launches)
@@ -2817,6 +2920,7 @@ def main() -> int:
             "plain_ms": parity[r["name"]]["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "stands_for": r["stands_for"], **scan_info.get(r["name"], {}),
+            **micro_info.get(r["name"], {}),
         })
     log(json.dumps({"env_steps_per_s_median": rate, "env_steps_per_s": rates, "batch": B,
                     "fast_grouping": FAST_W, "compute_dtype": "bfloat16",

@@ -69,19 +69,59 @@
 // every row of each `rb`-row block of a [rows, 128] f32 array, rows 0..7 of
 // each block written out ([8 rows / rb, 128]). The whole block is computed
 // and the store is guarded at run time, so no row's work is dead code.
-//   gather       sum_{r < reps} a[row, (idx[row, l] + r) mod 128] (rows staged in shared)
+//   gather       sum_{r < reps} a[row, (idx[row, l] + r) mod 128]
 //   vadd         v <- v * 1.0000001 + 1, reps times (never contracted into an FMA)
 //   roll_narrow  the column a[:, 0] shifted down one row (mod rb) and 1 added,
-//                reps times, in shared memory; the value goes in every lane
-//   roll_wide    the same for every lane, in groups of kRollLanes lanes
+//                reps times; the value goes in every lane
+//   roll_wide    the same for every lane
 //   bd_matmul    the exclusive prefix sum of bf16(a) down each 49-row group
 //                (the TPU's block-diagonal prefix matmul), added to an f32
 //                accumulator reps times; a thread per lane and group keeps
 //                the group's 49 values and 49 accumulators in registers, and
 //                writes their sum per group (sums [rows / 49, 128]) so that
 //                every row's work is kept, as the TPU's full matmul does it.
-// Bounds: bytes for one pass (12.8 MB in and out at 25,088 x 128), a few
-// microseconds; reps adds per element at 67 TFLOP/s.
+// Every add and multiply is __fadd_rn / __fmul_rn, so the bounds count them
+// at the card's non-FMA f32 rate (33.45e12 a second, below).
+//
+// probe_roll_kernel<kC, kRagged, kRing>: the roll in registers. A ring (one
+// lane column of one block) is held by 32 x warps threads, thread u holding
+// rows kC u + j (j < kC) in registers: kC = 49 and one warp at the session's
+// rb = 1,568 = 32 x 49. A rep is one __shfl_sync that brings in the previous
+// thread's last row (thread 0 takes the ring's last row, so the wrap from row
+// rb - 1 stays inside the warp) and kC __fadd_rn(., 1) written from the last
+// slot down, so the adds do the shift and no value is moved. Every row's
+// value flows into the shuffle kC reps later, so no row is dead code.
+// roll_wide: a block of 16 warps holds 16 lanes of one block of rows (64-byte
+// row segments: 128 blocks at the session's shape, one wave); it reads its
+// slab as float4s, eight a thread in flight, and stages it in shared memory
+// column by column at a pitch of 2 mod 8 floats, so the staging stores and
+// the column reads (stride kC = 49, odd) are conflict-free; nothing divides
+// inside the loop. roll_narrow: one warp a block holds lane 0's column, each
+// thread reading its rows straight from device memory. Other rb: kC is the
+// smallest of 2, 4, 8, 16, 32, 49, 64 with 32 kC >= rb, the last thread
+// holding the rest (kRagged: it sends its row `last - 1`, picked by a chain
+// of selects, and its tail is never read); past 2,048 rows, kC = 64 and a
+// ring spans up to 16 warps of one column (kRing), the warps passing their
+// last rows through shared memory with one barrier a rep.
+// Bound: bytes (the slab read once; at rb = 1,568 the 3.2e6 adds a rep take
+// 0.1 us at the non-FMA rate). What it costs on the card: the slab's read
+// and a rep loop at the FADD issue rate, one after the other in each block.
+//
+// probe_micro_kernel<kVadd>: each thread runs 16 independent chains (four
+// consecutive float4s of one row, all loaded before the first rep) and
+// computes its store guard once. Bound: bytes at 8 reps, the 2 reps
+// operations an element at 32.
+// probe_micro_kernel<kGatherOp>: a block stages 64 rows, each followed by its
+// first 32 values again so that a window of 32 never wraps, and sorts its
+// 8,192 outputs by the bank of their start (idx mod 32: a row is 160 floats,
+// 0 mod 32) with a counting sort in shared memory, paid once and not a rep.
+// Lane b of every warp then takes bank b's outputs, so at rep r lane b reads
+// bank (b + r) mod 32 and every warp's read is one wavefront; a lane whose
+// bank has run out reads a dummy window on its own bank. A warp runs four
+// outputs a lane at once; each sum is v = 0; v += a[row, (idx + r) mod 128]
+// for r = 0 .. reps - 1, in that order. Three blocks a SM, one wave at the
+// session's shape. Bound: the reps x rows x 128 shared reads at 32 words a
+// clock a SM (8.36e12 a second) at 32 reps, the 25.7 MB read at 8.
 //
 // probe_wide_kernel replaces scripts/onchip_r4a.py::_wide_kernel:
 // out[b, p, k] = sum_{c < nc} tab[b, nc p + c, idx[b, nc p + c, k]], a gather
@@ -103,6 +143,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+
 namespace {
 
 constexpr int kChunk = 128;       // points per chunk, lanes per row
@@ -114,8 +155,20 @@ constexpr int kScanThreads = kWarps * 32;
 constexpr int kMaxScanPoints = 19328; // 151 chunks: x, y, z f32 in 227 KB
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kOutRows = 8;       // rows written per micro block
-constexpr int kRowsPerBlock = 16; // rows per block of the elementwise micro ops
-constexpr int kRollLanes = 4;     // lanes per block of roll_wide
+constexpr int kVaddThreads = 256;
+constexpr int kVaddVecs = 4;      // float4s a thread of vadd: 16 independent chains
+constexpr float kVaddScale = 1.0000001f;
+constexpr int kGatherRows = 64;   // rows a block of gather
+constexpr int kGatherThreads = 512;
+constexpr int kGatherPitch = 160; // floats a staged row: its 128 values, then its first 32 again
+constexpr int kGatherChains = 4;  // outputs a lane runs at once
+// the sorted outputs: bank b's at 2b + 64 m + g (g < its count), so lane b's
+// g-th entry lies in bank b + g / 2 (mod 32): 8,192 entries and the padding
+constexpr int kGatherList = kGatherRows * kChunk + 32 * 2 * 32 + 32 * 64;
+constexpr int kRollCols = 16;     // lane columns a block of roll_wide, one ring each
+constexpr int kRollMaxRows = 64;  // rows a thread of a ring holds at most
+constexpr int kRollMaxWarps = 16; // warps a ring spans at most
+constexpr int kRollThreads = 512;
 constexpr int kGroup = 49;        // rows per prefix group of bd_matmul
 constexpr int kScratchRows = 8;
 
@@ -326,74 +379,331 @@ __global__ void __launch_bounds__(kScanThreads, 3) probe_scan_kernel(ScanArgs a)
   }
 }
 
-// gather and vadd: kRowsPerBlock rows a block, one thread per lane.
-template <int kOp>
-__global__ void __launch_bounds__(kChunk) probe_micro_kernel(const float* __restrict__ a,
-                                                            const int* __restrict__ idx,
-                                                            int rows, int rb, int reps,
-                                                            float* __restrict__ out) {
-  __shared__ float srow[kRowsPerBlock][kChunk];
-  const int l = threadIdx.x;
-  const int r0 = blockIdx.x * kRowsPerBlock;
-  if (kOp == kGatherOp) {
-    for (int i = 0; i < kRowsPerBlock && r0 + i < rows; ++i) {
-      srow[i][l] = a[(size_t)(r0 + i) * kChunk + l];
-    }
-    __syncthreads();
+struct MicroArgs {
+  const float* a;   // [rows, 128]
+  const int* idx;   // [rows, 128] in [0, 128) (gather)
+  float* out;       // [8 rows / rb, 128]
+  int rows, rb, reps;
+  int vec;          // a and idx 16-byte aligned: read as float4 / int4
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float4 load4(const float* p, bool vec) {
+  return vec ? __ldg(reinterpret_cast<const float4*>(p)) : make_float4(p[0], p[1], p[2], p[3]);
+}
+
+__device__ __forceinline__ int4 load4(const int* p, bool vec) {
+  return vec ? __ldg(reinterpret_cast<const int4*>(p)) : make_int4(p[0], p[1], p[2], p[3]);
+}
+
+// A warp's kK outputs a lane of gather (see the note at the top): lane b
+// reads bank (b + r) mod 32 at rep r in each of its kK windows.
+template <int kK>
+__device__ __forceinline__ void gather_outputs(const float* srow, const uint16_t* list,
+                                               const int* outrow, int base, int cnt, int g0,
+                                               int step, int lane, const MicroArgs& p) {
+  const float* rowp[kK];
+  int s[kK], col[kK], orow[kK];
+  float acc[kK];
+#pragma unroll
+  for (int k = 0; k < kK; ++k) {
+    const int g = g0 + k * step;
+    // entry: out row? << 15 | row << 9 | lane column << 2 | idx >> 5, and
+    // idx mod 32 = lane; a lane past its bank's outputs reads row 0 from
+    // `lane`, writing nothing
+    const unsigned e = g < cnt ? list[base + g] : 0u;
+    const int row = (e >> 9) & (kGatherRows - 1);
+    rowp[k] = srow + row * kGatherPitch;
+    s[k] = (int)((e & 3u) << 5) | lane;
+    col[k] = (e >> 2) & (kChunk - 1);
+    orow[k] = e >> 15 ? outrow[row] : -1;
+    acc[k] = 0.f;
   }
-  for (int i = 0; i < kRowsPerBlock && r0 + i < rows; ++i) {
-    const int row = r0 + i;
-    float v;
-    if (kOp == kGatherOp) {
-      int cur = idx[(size_t)row * kChunk + l];
-      v = 0.f;
-      for (int r = 0; r < reps; ++r) {
-        v = __fadd_rn(v, srow[i][cur]);
-        cur = (cur + 1) & (kChunk - 1);
+  for (int c = 0; c < p.reps; c += 32) {  // reps c .. c + 31 read values s + c .. s + c + 31
+    const float* w[kK];
+#pragma unroll
+    for (int k = 0; k < kK; ++k) w[k] = rowp[k] + ((s[k] + c) & (kChunk - 1));
+    if (p.reps - c >= 32) {
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+#pragma unroll
+        for (int k = 0; k < kK; ++k) acc[k] = __fadd_rn(acc[k], w[k][r]);
       }
-    } else {  // kVadd
-      v = a[(size_t)row * kChunk + l];
-      for (int r = 0; r < reps; ++r) v = __fadd_rn(__fmul_rn(v, 1.0000001f), 1.f);
+    } else {
+      for (int r = 0; r < p.reps - c; ++r) {
+#pragma unroll
+        for (int k = 0; k < kK; ++k) acc[k] = __fadd_rn(acc[k], w[k][r]);
+      }
     }
-    const int in_blk = row % rb;
-    if (in_blk < kOutRows) out[((size_t)(row / rb) * kOutRows + in_blk) * kChunk + l] = v;
+  }
+#pragma unroll
+  for (int k = 0; k < kK; ++k) {
+    if (orow[k] >= 0) p.out[(size_t)orow[k] * kChunk + col[k]] = acc[k];
   }
 }
 
-// roll_narrow (width 1: lane 0 only, written to every lane) and roll_wide
-// (kRollLanes lanes a block): the block's rb x width slab in shared memory,
-// double-buffered, shifted down one row (mod rb) with 1 added, reps times.
-__global__ void __launch_bounds__(256) probe_roll_kernel(const float* __restrict__ a, int rb,
-                                                         int reps, int width,
-                                                         float* __restrict__ out) {
-  extern __shared__ float slab[];
-  float* cur = slab;
-  float* nxt = slab + rb * width;
-  const int blk = blockIdx.x;
-  const int lane0 = blockIdx.y * width;
-  const int size = rb * width;
-  for (int e = threadIdx.x; e < size; e += blockDim.x) {
-    cur[e] = a[((size_t)blk * rb + e / width) * kChunk + lane0 + e % width];
-  }
-  __syncthreads();
-  for (int r = 0; r < reps; ++r) {
-    for (int e = threadIdx.x; e < size; e += blockDim.x) {
-      const int i = e / width, w = e % width;
-      nxt[e] = __fadd_rn(cur[((i + rb - 1) % rb) * width + w], 1.f);
+// gather (kGatherOp) and vadd (kVadd); see the note at the top.
+template <int kOp>
+__global__ void __launch_bounds__(kOp == kGatherOp ? kGatherThreads : kVaddThreads,
+                                  kOp == kGatherOp ? 3 : 1)
+    probe_micro_kernel(MicroArgs p) {
+  const int tid = threadIdx.x;
+  if constexpr (kOp == kVadd) {
+    const int q0 = (blockIdx.x * kVaddThreads + tid) * kVaddVecs;  // its first float4
+    if (q0 >= p.rows * (kChunk / 4)) return;
+    const int row = q0 / (kChunk / 4);  // the thread's float4s lie in one row
+    float4 v[kVaddVecs];
+#pragma unroll
+    for (int k = 0; k < kVaddVecs; ++k) v[k] = load4(p.a + 4 * (size_t)(q0 + k), p.vec);
+    const int in_blk = row % p.rb;
+#pragma unroll 2
+    for (int r = 0; r < p.reps; ++r) {
+#pragma unroll
+      for (int k = 0; k < kVaddVecs; ++k) {
+        v[k].x = __fadd_rn(__fmul_rn(v[k].x, kVaddScale), 1.f);
+        v[k].y = __fadd_rn(__fmul_rn(v[k].y, kVaddScale), 1.f);
+        v[k].z = __fadd_rn(__fmul_rn(v[k].z, kVaddScale), 1.f);
+        v[k].w = __fadd_rn(__fmul_rn(v[k].w, kVaddScale), 1.f);
+      }
+    }
+    if (in_blk < kOutRows) {
+      float4* o = reinterpret_cast<float4*>(
+          p.out + ((size_t)(row / p.rb) * kOutRows + in_blk) * kChunk + 4 * (q0 % (kChunk / 4)));
+#pragma unroll
+      for (int k = 0; k < kVaddVecs; ++k) o[k] = v[k];
+    }
+  } else {
+    extern __shared__ __align__(16) float smem[];
+    float* srow = smem;                                                   // [64][160]
+    uint16_t* list = reinterpret_cast<uint16_t*>(srow + kGatherRows * kGatherPitch);
+    int* count = reinterpret_cast<int*>(list + kGatherList);              // [32] outputs a bank
+    int* start = count + 32;                                              // [32]
+    int* outrow = start + 32;                                             // [64] out row or -1
+    int* groups = outrow + kGatherRows;
+    const int lane = tid & 31, warp = tid >> 5;
+    const int r0 = blockIdx.x * kGatherRows;
+    const int nr = min(kGatherRows, p.rows - r0);
+    if (tid < kGatherRows) {
+      if (tid < 32) count[tid] = 0;
+      const int row = r0 + tid, ib = row % p.rb;
+      outrow[tid] = tid < nr && ib < kOutRows ? (row / p.rb) * kOutRows + ib : -1;
+    }
+    // the indices first, four int4s a thread, so that they arrive ahead of
+    // the rows and the sort runs while the rows stream in
+    constexpr int kPer = kGatherRows * kChunk / 4 / kGatherThreads;
+    const int n4 = nr * (kChunk / 4);
+    int4 i4[kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int q = tid + k * kGatherThreads;
+      i4[k] = q < n4 ? load4(p.idx + ((size_t)r0 * kChunk + 4 * q), p.vec) : int4{};
+    }
+    // the rows, each followed by its first 32 values, straight to shared memory
+    for (int q = tid; q < n4; q += kGatherThreads) {
+      const int row = q / (kChunk / 4), c4 = q % (kChunk / 4);
+      float* dst = srow + row * kGatherPitch + 4 * c4;
+      const float* src = p.a + ((size_t)r0 * kChunk + 4 * q);
+      if (p.vec) {
+        cp_async16(dst, src);
+        if (c4 < 32 / 4) cp_async16(dst + kChunk, src);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          cp_async4(dst + i, src + i);
+          if (c4 < 32 / 4) cp_async4(dst + kChunk + i, src + i);
+        }
+      }
+    }
+    // the indices kept as bytes; each output's rank in its bank's bin, two to
+    // a register
+    unsigned keys[kPer], ranks[kPer][2];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      keys[k] = (unsigned)i4[k].x | (unsigned)i4[k].y << 8 | (unsigned)i4[k].z << 16 |
+                (unsigned)i4[k].w << 24;
+    }
+    __syncthreads();  // count is zeroed
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      if (tid + k * kGatherThreads < n4) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const unsigned lo = atomicAdd(&count[(keys[k] >> (16 * h)) & 31], 1);
+          const unsigned hi = atomicAdd(&count[(keys[k] >> (16 * h + 8)) & 31], 1);
+          ranks[k][h] = lo | hi << 16;
+        }
+      }
     }
     __syncthreads();
-    float* t = cur;
-    cur = nxt;
-    nxt = t;
-  }
-  for (int e = threadIdx.x; e < kOutRows * kChunk; e += blockDim.x) {
-    const int i = e / kChunk, l = e % kChunk;
-    float* o = out + ((size_t)blk * kOutRows + i) * kChunk;
-    if (width == 1) {
-      o[l] = cur[i];
-    } else if (l < width) {
-      o[lane0 + l] = cur[i * width + l];
+    if (warp == 0) {
+      // bank b's bin: a region of a multiple of 64 entries, its entries from
+      // 2b on; and the most outputs of a bank
+      const int c = count[lane];
+      const int size = (2 * lane + c + 63) & ~63;
+      int incl = size;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int t = __shfl_up_sync(kFull, incl, d);
+        if (lane >= d) incl += t;
+      }
+      start[lane] = incl - size + 2 * lane;
+      const int most = __reduce_max_sync(kFull, c);
+      if (lane == 0) *groups = most;
     }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int q = tid + k * kGatherThreads;
+      if (q < n4) {
+        const int row = q / (kChunk / 4), col = 4 * (q % (kChunk / 4));
+        const unsigned flag = outrow[row] >= 0 ? 1u << 15 : 0u;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const unsigned v = (keys[k] >> (8 * e)) & 0xffu;
+          list[start[v & 31] + ((ranks[k][e >> 1] >> (16 * (e & 1))) & 0xffffu)] =
+              (uint16_t)(flag | row << 9 | (col + e) << 2 | v >> 5);
+        }
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    // warp w runs groups w, w + 16, ...: group g is the g-th output of every bank
+    constexpr int kWarpsG = kGatherThreads / 32;
+    const int ng = *groups, cnt = count[lane], base = start[lane];
+    int g0 = warp;
+    for (; g0 + (kGatherChains - 1) * kWarpsG < ng; g0 += kGatherChains * kWarpsG)
+      gather_outputs<kGatherChains>(srow, list, outrow, base, cnt, g0, kWarpsG, lane, p);
+    for (; g0 < ng; g0 += kWarpsG)
+      gather_outputs<1>(srow, list, outrow, base, cnt, g0, kWarpsG, lane, p);
+  }
+}
+
+struct RollArgs {
+  const float* a;  // [rows, 128]
+  float* out;      // [8 rows / rb, 128]
+  int rb, reps;
+  int warps;       // warps a ring
+  int used;        // threads of a ring that hold rows: ceil(rb / kC)
+  int last;        // rows of thread used - 1 (kC unless ragged)
+  int pitch;       // floats between two staged columns: >= rb, 2 mod 8
+  int narrow;      // roll_narrow: lane 0's column, written to every lane
+  int vec;         // a 16-byte aligned: the slab read as float4s
+};
+
+// reps rolls of a ring, thread u holding its rows kC u + j in v: the
+// previous thread's last row comes in by one shuffle (kRing: lane 0 takes
+// the previous warp's through xch, one barrier a rep), and kC adds shift
+// the registers down one slot.
+template <int kC, bool kRagged, bool kRing>
+__device__ __forceinline__ void roll_reps(float (&v)[kC], const RollArgs& p, int u, float* xch) {
+  const int lane = u & 31, w = u >> 5;
+  // the thread whose last row comes in: u - 1, or the ring's last thread
+  const int src_lane = lane ? lane - 1 : (kRing ? 31 : p.used - 1);
+  const int send_slot = kRagged && u == p.used - 1 ? p.last - 1 : kC - 1;
+  for (int r = 0; r < p.reps; ++r) {
+    float send = v[kC - 1];
+    if constexpr (kRagged) {
+#pragma unroll
+      for (int j = 0; j < kC - 1; ++j) send = j == send_slot ? v[j] : send;
+    }
+    float got = __shfl_sync(kFull, send, src_lane);
+    if constexpr (kRing) {
+      float* x = xch + (r & 1) * p.warps;
+      if (u == p.used - 1) {
+        x[0] = send;
+      } else if (lane == 31 && u < p.used) {
+        x[w + 1] = send;
+      }
+      __syncthreads();
+      if (lane == 0) got = x[w];
+    }
+#pragma unroll
+    for (int j = kC - 1; j > 0; --j) v[j] = __fadd_rn(v[j - 1], 1.f);
+    v[0] = __fadd_rn(got, 1.f);
+  }
+}
+
+// roll_wide and roll_narrow in registers; see the note at the top.
+template <int kC, bool kRagged, bool kRing>
+__global__ void __launch_bounds__(kRollThreads) probe_roll_kernel(RollArgs p) {
+  // roll_wide: [kRollCols][pitch] staged columns; else [8] rows out, then
+  // kRing: [2][warps]
+  extern __shared__ __align__(16) float stage[];
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int first = kC * (tid % (32 * p.warps));  // thread u holds rows first + j; past rb, 0
+  float v[kC];
+  if (!p.narrow && p.warps == 1) {
+    // roll_wide, one warp a ring: block i holds lanes 16 (i mod 8) .. + 15 of
+    // block i / 8 of rows. The slab, 64 bytes a row, is read as float4s,
+    // eight a thread in flight, and written into columns.
+    constexpr int kRow4 = kRollCols / 4, kBatch = 8;
+    const int c = tid / 32, groups = kChunk / kRollCols;
+    const int blk = blockIdx.x / groups, col0 = blockIdx.x % groups * kRollCols;
+    const float* src = p.a + (size_t)blk * p.rb * kChunk + col0;
+    const int n4 = p.rb * kRow4;
+    for (int q0 = tid; q0 < n4; q0 += kBatch * nthreads) {
+      float4 x[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int q = q0 + k * nthreads;
+        if (q < n4) x[k] = load4(src + (size_t)(q / kRow4) * kChunk + 4 * (q % kRow4), p.vec);
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int q = q0 + k * nthreads;
+        if (q < n4) {
+          float* dst = stage + 4 * (q % kRow4) * p.pitch + q / kRow4;
+          dst[0] = x[k].x;
+          dst[p.pitch] = x[k].y;
+          dst[2 * p.pitch] = x[k].z;
+          dst[3 * p.pitch] = x[k].w;
+        }
+      }
+    }
+    __syncthreads();
+    const float* col = stage + c * p.pitch;
+#pragma unroll
+    for (int j = 0; j < kC; ++j) v[j] = first + j < p.rb ? col[first + j] : 0.f;
+    roll_reps<kC, kRagged, false>(v, p, tid & 31, nullptr);
+    float* out = p.out + (size_t)blk * kOutRows * kChunk + col0 + c;
+#pragma unroll
+    for (int j = 0; j < (kC < kOutRows ? kC : kOutRows); ++j) {
+      if (first + j < kOutRows) out[(first + j) * kChunk] = v[j];
+    }
+    return;
+  }
+  // one column a block (roll_narrow, and rings over several warps): each
+  // thread reads its rows
+  const int col0 = p.narrow ? 0 : blockIdx.y;
+  const float* src = p.a + (size_t)blockIdx.x * p.rb * kChunk + col0;
+#pragma unroll
+  for (int j = 0; j < kC; ++j) v[j] = first + j < p.rb ? src[(size_t)(first + j) * kChunk] : 0.f;
+  roll_reps<kC, kRagged, kRing>(v, p, tid, stage + kOutRows);
+#pragma unroll
+  for (int j = 0; j < (kC < kOutRows ? kC : kOutRows); ++j) {
+    if (first + j < kOutRows) stage[first + j] = v[j];
+  }
+  __syncthreads();
+  float* out = p.out + (size_t)blockIdx.x * kOutRows * kChunk;
+  if (p.narrow) {
+    for (int e = tid; e < kOutRows * kChunk; e += nthreads) out[e] = stage[e / kChunk];
+  } else {
+    for (int e = tid; e < kOutRows; e += nthreads) out[e * kChunk + col0] = stage[e];
   }
 }
 
@@ -502,6 +812,92 @@ cudaError_t scan_setup(int n, int mode, void (**kernel)(ScanArgs), size_t* smem)
                               cudaSharedmemCarveoutMaxShared);
 }
 
+using RollKernel = void (*)(RollArgs);
+using MicroKernel = void (*)(MicroArgs);
+constexpr int kRollSizes = 7;
+constexpr int kRollRowsPerThread[kRollSizes] = {2, 4, 8, 16, 32, 49, kRollMaxRows};
+
+// The launch of a micro op at rb rows a block (rows: the grid): its kernel,
+// grid, threads, dynamic shared memory (opted in, shared memory preferred
+// over L1), and for the roll its rows a thread, raggedness and warps a ring.
+struct MicroLaunch {
+  const void* fn;
+  RollKernel roll;
+  MicroKernel micro;
+  dim3 grid;
+  int threads;
+  size_t smem;
+  RollArgs ra;
+  int rows_per_thread, ragged;  // the roll's kC and kRagged
+};
+
+cudaError_t micro_setup(int rows, int rb, int op, MicroLaunch* m) {
+  static const RollKernel roll[kRollSizes][2] = {
+      {probe_roll_kernel<2, false, false>, probe_roll_kernel<2, true, false>},
+      {probe_roll_kernel<4, false, false>, probe_roll_kernel<4, true, false>},
+      {probe_roll_kernel<8, false, false>, probe_roll_kernel<8, true, false>},
+      {probe_roll_kernel<16, false, false>, probe_roll_kernel<16, true, false>},
+      {probe_roll_kernel<32, false, false>, probe_roll_kernel<32, true, false>},
+      {probe_roll_kernel<49, false, false>, probe_roll_kernel<49, true, false>},
+      {probe_roll_kernel<kRollMaxRows, false, false>, probe_roll_kernel<kRollMaxRows, true, false>}};
+  static const RollKernel roll_ring[2] = {probe_roll_kernel<kRollMaxRows, false, true>,
+                                          probe_roll_kernel<kRollMaxRows, true, true>};
+  *m = MicroLaunch{};
+  const int nblk = rows / rb;
+  if (op == kGatherOp || op == kVadd) {
+    const bool gather = op == kGatherOp;
+    m->micro = gather ? probe_micro_kernel<kGatherOp> : probe_micro_kernel<kVadd>;
+    m->threads = gather ? kGatherThreads : kVaddThreads;
+    const int per_block = gather ? kGatherRows : kVaddThreads * kVaddVecs / (kChunk / 4);
+    m->grid = dim3((rows + per_block - 1) / per_block);
+    m->smem = gather ? sizeof(float) * kGatherRows * kGatherPitch + sizeof(uint16_t) * kGatherList +
+                           sizeof(int) * (32 + 32 + kGatherRows + 1)
+                     : 0;
+    m->fn = (const void*)m->micro;
+  } else if (op == kBdMatmul) {
+    m->fn = (const void*)probe_prefix_kernel;
+    m->grid = dim3(nblk * (rb / kGroup));
+    m->threads = kChunk;
+    return cudaSuccess;
+  } else {
+    // one warp a ring up to 32 x 64 rows, else 64 rows a thread over up to 16 warps
+    const int warps = (rb + 32 * kRollMaxRows - 1) / (32 * kRollMaxRows);
+    if (warps > kRollMaxWarps) return cudaErrorInvalidValue;
+    int ci = kRollSizes - 1;
+    if (warps == 1) {
+      ci = 0;
+      while (32 * kRollRowsPerThread[ci] < rb) ++ci;
+    }
+    const int kc = kRollRowsPerThread[ci];
+    RollArgs& ra = m->ra;
+    ra.rb = rb;
+    ra.warps = warps;
+    ra.used = (rb + kc - 1) / kc;
+    ra.last = rb - (ra.used - 1) * kc;
+    ra.narrow = op == kRollNarrow;
+    const bool ragged = ra.last != kc;
+    m->rows_per_thread = kc;
+    m->ragged = ragged;
+    const int cols = ra.narrow || warps > 1 ? 1 : kRollCols;
+    ra.pitch = (rb + 5) / 8 * 8 + 2;  // 2 mod 8: a warp's staging stores hit 32 banks
+    m->roll = warps > 1 ? roll_ring[ragged] : roll[ci][ragged];
+    m->fn = (const void*)m->roll;
+    m->threads = 32 * warps * cols;
+    if (cols == kRollCols) {
+      m->grid = dim3(nblk * (kChunk / kRollCols));
+      m->smem = sizeof(float) * kRollCols * (size_t)ra.pitch;
+    } else {
+      m->grid = dim3(nblk, ra.narrow ? 1 : kChunk);
+      m->smem = sizeof(float) * (kOutRows + (warps > 1 ? 2 * warps : 0));
+    }
+  }
+  cudaError_t e = cudaFuncSetAttribute(m->fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)m->smem);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(m->fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
 }  // namespace
 
 extern "C" {
@@ -535,34 +931,50 @@ int mpn_probe_scan_plan(int n, int mode, int* smem_bytes, int* blocks_per_sm) {
 
 // a [rows, 128] f32, idx [rows, 128] int32 in [0, 128) (gather only; may be
 // null otherwise); out [8 rows / rb, 128] f32; sums [rows / 49, 128] f32
-// (bd_matmul only; may be null otherwise). rows a multiple of rb, rb >= 8;
-// bd_matmul needs rb a multiple of 49. op a MicroOp. Returns a cudaError_t.
+// (bd_matmul only; may be null otherwise). rows a multiple of rb, rb >= 8
+// (roll: up to 32,768); bd_matmul needs rb a multiple of 49. op a MicroOp.
+// Returns a cudaError_t.
 int mpn_probe_micro(const float* a, const int* idx, int rows, int rb, int op, int reps,
                     float* out, float* sums, void* stream) {
   if (rb < kOutRows || rows < rb || rows % rb || reps < 0 || op < 0 || op >= kMicroOps ||
       (op == kGatherOp && !idx) || (op == kBdMatmul && (rb % kGroup || !sums)))
     return (int)cudaErrorInvalidValue;
+  MicroLaunch m;
+  cudaError_t e = micro_setup(rows, rb, op, &m);
+  if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nblk = rows / rb;
-  cudaError_t e = cudaSuccess;
-  if (op == kGatherOp || op == kVadd) {
-    const int grid = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-    if (op == kGatherOp) {
-      probe_micro_kernel<kGatherOp><<<grid, kChunk, 0, st>>>(a, idx, rows, rb, reps, out);
-    } else {
-      probe_micro_kernel<kVadd><<<grid, kChunk, 0, st>>>(a, idx, rows, rb, reps, out);
-    }
-  } else if (op == kBdMatmul) {
-    probe_prefix_kernel<<<nblk * (rb / kGroup), kChunk, 0, st>>>(a, rb, reps, out, sums);
+  const int vec = (reinterpret_cast<uintptr_t>(a) |
+                   (op == kGatherOp ? reinterpret_cast<uintptr_t>(idx) : 0)) % 16 == 0;
+  if (op == kBdMatmul) {
+    probe_prefix_kernel<<<m.grid, m.threads, 0, st>>>(a, rb, reps, out, sums);
+  } else if (m.micro) {
+    m.micro<<<m.grid, m.threads, m.smem, st>>>(MicroArgs{a, idx, out, rows, rb, reps, vec});
   } else {
-    const int width = op == kRollNarrow ? 1 : kRollLanes;
-    const size_t smem = 2 * sizeof(float) * (size_t)rb * width;
-    e = smem_optin(probe_roll_kernel, smem);
-    if (e != cudaSuccess) return (int)e;
-    probe_roll_kernel<<<dim3(nblk, op == kRollNarrow ? 1 : kChunk / kRollLanes), 256, smem, st>>>(
-        a, rb, reps, width, out);
+    m.ra.a = a;
+    m.ra.out = out;
+    m.ra.reps = reps;
+    m.ra.vec = vec;
+    m.roll<<<m.grid, m.threads, m.smem, st>>>(m.ra);
   }
   return (int)cudaGetLastError();
+}
+
+// The launch of op at rb rows a block: info[0..5] = threads a block, dynamic
+// shared memory in bytes, blocks that fit on one SM, and for the roll its rows
+// a thread, whether the ring's last thread is ragged (1) and its warps a ring
+// (0 for the other ops). Returns a cudaError_t.
+int mpn_probe_micro_plan(int rb, int op, int* info) {
+  if (rb < kOutRows || op < 0 || op >= kMicroOps || (op == kBdMatmul && rb % kGroup))
+    return (int)cudaErrorInvalidValue;
+  MicroLaunch m;
+  cudaError_t e = micro_setup(rb, rb, op, &m);
+  if (e != cudaSuccess) return (int)e;
+  info[0] = m.threads;
+  info[1] = (int)m.smem;
+  info[3] = m.rows_per_thread;
+  info[4] = m.ragged;
+  info[5] = m.roll ? m.ra.warps : 0;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(info + 2, m.fn, m.threads, m.smem);
 }
 
 // tab [b, parts * nc, 128] f32, idx [b, parts * nc, width] int32 in

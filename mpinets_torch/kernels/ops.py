@@ -107,6 +107,7 @@ _SIGNATURES = {
     "mpn_probe_scan": [_P] * 3 + [_I] * 3 + [ctypes.c_float, _I, _P, _P],
     "mpn_probe_scan_plan": [_I, _I, _P, _P],
     "mpn_probe_micro": [_P, _P] + [_I] * 4 + [_P, _P, _P],
+    "mpn_probe_micro_plan": [_I, _I, _P],
     "mpn_probe_wide": [_P, _P] + [_I] * 4 + [_P, _P],
     "mpn_probe_scratch": [_I, _P, _P],
 }

@@ -12,8 +12,12 @@ long-minus-short loop (``onchip_r3b.py:248-265``: 2 and 10 calls, best of
 beside the kernel they explain. The scan probes are also held against
 their plain version on a small cloud with the scan's edge cases
 (:func:`edge_scan_inputs`) and on one where centroids pass 128 hits early
-(:func:`dense_scan_inputs`). Inputs are made from ``seed`` with a
-``torch.Generator``.
+(:func:`dense_scan_inputs`); the micro-ops at the kernels' other layouts
+(:data:`MICRO_EDGE_CASES`). Inputs are made from ``seed`` with a
+``torch.Generator``. Bounds count uncontracted f32 operations at the
+card's non-FMA rate (:data:`F32_NOFMA_OPS`: the scan's distances and every
+micro-op's adds and multiplies) and gather's shared-memory reads at
+:data:`SMEM_WORDS_PER_S`.
 
 Each scan mode runs once, for every measurement of the scripts that
 computes the same function (:data:`SCAN_PROBES`). Each record is one JSON
@@ -61,6 +65,10 @@ F32_FLOPS = 67e12
 # The distance tests (__fsub_rn / __fmul_rn / __fadd_rn, never contracted,
 # and a compare) issue one operation a slot at this rate.
 F32_NOFMA_OPS = 132 * 128 * 1.98e9
+# 4-byte shared-memory reads a second: 132 SMs x 32 banks, one word a bank a
+# clock, x 1.98 GHz (a warp's conflict-free 32-bit read is one wavefront of
+# 128 bytes a clock); wider reads move no more words a clock.
+SMEM_WORDS_PER_S = 132 * 32 * 1.98e9
 
 #: One probe per scan mode: (mode, the scripts' measurements it stands for,
 #: the TPU kernels it replaces). Probes of the scripts that compute the same
@@ -93,10 +101,14 @@ class Probe:
     stands_for: Tuple[str, ...] = ()  # the scripts' measurements this probe takes the place of
     timed: bool = True                # False: a check only
     rate: float = F32_FLOPS           # the card's rate for ``flops`` a second
+    smem_reads: float = 0.0           # 4-byte shared-memory reads the probe's work needs
 
     def bound(self):
-        """(ms, "bytes" | "operations"): the least time the card could take."""
-        t_bytes, t_ops = self.nbytes / HBM_BYTES_PER_S, self.flops / self.rate
+        """(ms, "bytes" | "operations"): the least time the card could take:
+        bytes over HBM's rate, or operations, the f32 ones at ``rate`` and
+        the shared-memory reads at :data:`SMEM_WORDS_PER_S`."""
+        t_bytes = self.nbytes / HBM_BYTES_PER_S
+        t_ops = max(self.flops / self.rate, self.smem_reads / SMEM_WORDS_PER_S)
         return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -178,6 +190,68 @@ def _scan_probes(xyz, feat, cent, prefix="scan_", timed=True) -> List[Probe]:
             for mode, stands_for, replaces in SCAN_PROBES]
 
 
+def _micro_probes(a, idx, rb, reps=REPS, which=micro.MICRO_OPS, timed=True,
+                  prefix="micro_") -> List[Probe]:
+    """The micro-op probes of the ops ``which`` on ``a``, ``idx`` in blocks of
+    ``rb`` rows, at each of ``reps``. Every add and multiply is uncontracted,
+    so operations count at the non-FMA rate; gather also reads ``reps`` words
+    of shared memory an element. bd_matmul's group sums, which show that the
+    kernel keeps every row's work, are checked and not timed."""
+    rows = a.shape[0]
+    idx_long = idx.long()
+    out_bytes = 4.0 * micro.OUT_ROWS * (rows // rb) * ops.CHUNK
+    probes = []
+    for op in which:
+        in_bytes = {"gather": 8.0 * rows * ops.CHUNK, "roll_narrow": 4.0 * rows}.get(
+            op, 4.0 * rows * ops.CHUNK)
+        if op == "bd_matmul":
+            in_bytes += 4.0 * rows // micro.GROUP * ops.CHUNK    # the group sums
+        per_rep = {"gather": 1, "roll_narrow": 1.0 / ops.CHUNK, "roll_wide": 1}.get(op, 2)
+        for r in reps:
+            name = f"{prefix}{op}_r{r}"
+            probes.append(Probe(
+                name, "probe_micro", "scripts/onchip_r3d.py:175",
+                lambda o=op, r=r: micro.micro_probe(a, idx, o, r, rb),
+                lambda o=op, r=r: micro.micro_plain(a, idx, o, r, rb),
+                in_bytes + out_bytes, float(per_rep * r * rows * ops.CHUNK),
+                # one rep of gather: the whole array gathered once
+                (lambda: torch.gather(a, 1, idx_long)) if op == "gather" else None,
+                stands_for=(f"onchip_r3d {name}",) if timed else (), timed=timed,
+                rate=F32_NOFMA_OPS,
+                smem_reads=float(r * rows * ops.CHUNK) if op == "gather" else 0.0))
+            if op == "bd_matmul":
+                probes.append(Probe(
+                    f"{name}_group_sums", "probe_micro", "scripts/onchip_r3d.py:175",
+                    lambda r=r: micro.micro_probe(a, idx, "bd_matmul", r, rb, True)[1],
+                    lambda r=r: micro.bd_matmul_plain(a, r)[1], 0.0, 0.0, timed=False))
+    return probes
+
+
+#: The micro probes' other layouts, checked only: (rb, reps, ops). rb = 98
+#: leaves the roll's last thread 2 rows of 4 (and 196 rows end in a gather
+#: block of 4 rows); rb = 1,000 leaves it 8 rows of 32 (bd_matmul: 1,029 =
+#: 21 x 49); 5,000 spans 3 warps a ring; reps 0 and 33 (a window past 32).
+MICRO_EDGE_CASES = (
+    (98, (0, 1, 33), micro.MICRO_OPS),
+    (1000, (8,), ("gather", "roll_narrow", "roll_wide", "vadd")),
+    (1029, (8,), ("bd_matmul",)),
+    (5000, (3,), ("roll_narrow", "roll_wide")),
+)
+
+
+def edge_micro_probes(device, seed: int = 0) -> List[Probe]:
+    """The micro probes at :data:`MICRO_EDGE_CASES`, two blocks of rb rows
+    each, on inputs made from ``seed``; checks only."""
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    probes = []
+    for rb, reps, which in MICRO_EDGE_CASES:
+        a = torch.rand((2 * rb, ops.CHUNK), generator=gen, device=device)
+        idx = torch.randint(0, ops.CHUNK, (2 * rb, ops.CHUNK), generator=gen, device=device,
+                            dtype=torch.int32)
+        probes += _micro_probes(a, idx, rb, reps, which, timed=False, prefix=f"micro_rb{rb}_")
+    return probes
+
+
 def _size(device, batch):
     size = dict(SMALL if torch.device(device).type == "cpu" else FULL)
     size["batch"] = batch or size["batch"]
@@ -211,28 +285,7 @@ def make_probes(device, batch: Optional[int] = None, seed: int = 0) -> List[Prob
     a = rand(rows, ops.CHUNK)
     idx = torch.randint(0, ops.CHUNK, (rows, ops.CHUNK), generator=gen, device=device,
                         dtype=torch.int32)
-    idx_long = idx.long()
-    out_bytes = 4.0 * micro.OUT_ROWS * (rows // rb) * ops.CHUNK
-    for op in micro.MICRO_OPS:
-        in_bytes = {"gather": 8.0 * rows * ops.CHUNK, "roll_narrow": 4.0 * rows}.get(
-            op, 4.0 * rows * ops.CHUNK)
-        if op == "bd_matmul":
-            in_bytes += 4.0 * rows // micro.GROUP * ops.CHUNK    # the group sums
-        per_rep = {"gather": 1, "roll_narrow": 1.0 / ops.CHUNK, "roll_wide": 1}.get(op, 2)
-        for reps in REPS:
-            name = f"micro_{op}_r{reps}"
-            probes.append(Probe(
-                name, "probe_micro", "scripts/onchip_r3d.py:175",
-                lambda o=op, r=reps: micro.micro_probe(a, idx, o, r, rb),
-                lambda o=op, r=reps: micro.micro_plain(a, idx, o, r, rb),
-                in_bytes + out_bytes, float(per_rep * reps * rows * ops.CHUNK),
-                (lambda: torch.gather(a, 1, idx_long)) if op == "gather" else None,
-                stands_for=(f"onchip_r3d {name}",)))
-            if op == "bd_matmul":
-                probes.append(Probe(
-                    f"{name}_group_sums", "probe_micro", "scripts/onchip_r3d.py:175",
-                    lambda r=reps: micro.micro_probe(a, idx, "bd_matmul", r, rb, True)[1],
-                    lambda r=reps: micro.bd_matmul_plain(a, r)[1], 0.0, 0.0, timed=False))
+    probes += _micro_probes(a, idx, rb)
 
     tab = torch.randn((b, WIDE_ROWS, ops.CHUNK), generator=gen, device=device)
     widx = torch.randint(0, ops.CHUNK, (b, WIDE_ROWS, WIDE_WIDTH), generator=gen, device=device,
@@ -370,7 +423,7 @@ def run(device=None, batch: Optional[int] = None, seed: int = 0) -> List[Dict]:
     out(dict(kind="device", device=dev.type, seed=seed, torch=torch.__version__,
              name=torch.cuda.get_device_name(dev) if cuda else "cpu",
              card=_card() if cuda else None))
-    probes = edge_probes(dev, seed) + make_probes(dev, batch, seed)
+    probes = edge_probes(dev, seed) + edge_micro_probes(dev, seed) + make_probes(dev, batch, seed)
     for probe in probes:
         out(check(probe))
     failed = [r["name"] for r in records if r["kind"] == "parity" and not r["ok"]]

@@ -830,18 +830,51 @@ def test_scan_probe_plan_and_largest_cloud(cuda, mode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("reps", [8, 32])
+@pytest.mark.parametrize("reps", [0, 8, 32])
 @pytest.mark.parametrize("op", micro.MICRO_OPS)
 def test_micro_probe_matches_plain(cuda, op, reps):
+    """Two blocks of rb = 98 rows (the roll's last thread holds 2 rows of 4),
+    and of a ragged rb: 1,000 (8 rows of 32; bd_matmul 1,029 = 21 x 49); the
+    rolls also at 5,000 (a ring over 3 warps) and on a misaligned view (the
+    kernels' scalar loads)."""
     rng = np.random.default_rng(6)
-    a = torch.from_numpy(rng.uniform(0, 1, (196, 128)).astype(np.float32))
-    idx = torch.from_numpy(rng.integers(0, 128, (196, 128)).astype(np.int32))
-    _check_probe("probe_micro", lambda: micro.micro_probe(a.to(cuda), idx.to(cuda), op, reps, 98),
-                 lambda: micro.micro_probe(a, idx, op, reps, 98))
-    if op == "bd_matmul":   # every row's work, through the group sums
+    rbs = [98, 1029 if op == "bd_matmul" else 1000] + [5000] * op.startswith("roll")
+    for rb in rbs:
+        a = torch.from_numpy(rng.uniform(0, 1, (2 * rb, 128)).astype(np.float32))
+        idx = torch.from_numpy(rng.integers(0, 128, (2 * rb, 128)).astype(np.int32))
         _check_probe("probe_micro",
-                     lambda: micro.micro_probe(a.to(cuda), idx.to(cuda), op, reps, 98, True)[1],
-                     lambda: micro.bd_matmul_plain(a, reps)[1])
+                     lambda: micro.micro_probe(a.to(cuda), idx.to(cuda), op, reps, rb),
+                     lambda: micro.micro_probe(a, idx, op, reps, rb))
+        if op == "bd_matmul":   # every row's work, through the group sums
+            _check_probe("probe_micro",
+                         lambda: micro.micro_probe(a.to(cuda), idx.to(cuda), op, reps, rb, True)[1],
+                         lambda: micro.bd_matmul_plain(a, reps)[1])
+    if op != "bd_matmul":
+        flat = torch.from_numpy(rng.uniform(0, 1, 196 * 128 + 1).astype(np.float32))
+        a, idx = flat[1:].view(196, 128), torch.from_numpy(
+            rng.integers(0, 128, (196, 128)).astype(np.int32))
+        shifted = torch.zeros(196 * 128 + 1, dtype=torch.int32, device=cuda)[1:].view(196, 128)
+        shifted.copy_(idx)
+        _check_probe("probe_micro",
+                     lambda: micro.micro_probe(flat.to(cuda)[1:].view(196, 128), shifted, op, reps,
+                                               98),
+                     lambda: micro.micro_probe(a, idx, op, reps, 98))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rb", [8, 33, 98, 1000, 1568, 2048, 2049, 5000, 7264, 32768])
+def test_roll_plan_matches_its_layout(cuda, rb):
+    """The kernel's choice of rows a thread, raggedness and warps a ring is
+    ``micro.roll_layout``'s (the CPU tests' model); one warp a ring of 49
+    rows a thread at the session's rb."""
+    lay = micro.roll_layout(rb)
+    for op in ("roll_narrow", "roll_wide"):
+        plan = micro.micro_plan(rb, op)
+        assert (plan["rows_per_thread"], plan["ragged"], plan["ring_warps"]) == (
+            lay.rows_per_thread, int(lay.ragged), lay.warps), plan
+        assert plan["blocks_per_sm"] >= 1
+    if rb == 1568:
+        assert micro.micro_plan(rb, "roll_wide")["kernel"] == "probe_roll_kernel<49, ragged=0, ring=0>"
 
 
 @pytest.mark.cuda

@@ -409,6 +409,184 @@ def test_micro_probe_matches_tpu_kernel(op, reps):
                                atol=MICRO_TOL[op] * max(1.0, np.abs(ref).max()))
 
 
+def test_micro_probe_bounds_use_the_non_fma_rate():
+    """The micro probes' bounds at the session's shape (25,088 x 128 in blocks
+    of 1,568 rows): every add and multiply at the card's non-FMA f32 rate,
+    and gather's shared-memory reads (reps x rows x 128 words) at 32 words a
+    clock a SM."""
+    rows, rb = session.FULL["rows"], session.FULL["rb"]
+    a, idx = torch.zeros(rows, 128), torch.zeros(rows, 128, dtype=torch.int32)
+    bounds = {p.name: p.bound() for p in session._micro_probes(a, idx, rb) if p.timed}
+    assert session.SMEM_WORDS_PER_S == pytest.approx(8.36e12, rel=1e-3)
+    expect = {"micro_vadd_r32": (0.00614, "operations"), "micro_vadd_r8": (0.0039, "bytes"),
+              "micro_roll_wide_r8": (0.0039, "bytes"), "micro_roll_wide_r32": (0.0039, "bytes"),
+              "micro_gather_r32": (0.0123, "operations"), "micro_gather_r8": (0.0077, "bytes")}
+    for name, (ms, by) in expect.items():
+        assert bounds[name][1] == by, name
+        assert bounds[name][0] == pytest.approx(ms, abs=5e-5), name
+    assert bounds["micro_vadd_r32"][0] == pytest.approx(
+        1e3 * 2 * 32 * rows * 128 / session.F32_NOFMA_OPS, rel=1e-12)
+    assert bounds["micro_gather_r32"][0] == pytest.approx(
+        1e3 * 32 * rows * 128 / session.SMEM_WORDS_PER_S, rel=1e-12)
+
+
+# The kernels' work layouts (csrc/probes.cu), modelled in numpy and held
+# bit-equal to the plain version and to the TPU body: the roll's rings in
+# registers (micro.roll_layout), gather's outputs sorted by the bank of their
+# start, vadd's four float4s of one row a thread.
+F32 = np.float32
+GATHER_PITCH = 160     # a staged row, then its first 32 values again
+GATHER_LIST = 64 * 128 + 32 * 2 * 32 + 32 * 64   # the sorted list's entries
+
+
+def _roll_model(a, rb, reps, narrow):
+    """``probe_roll_kernel``: thread u of a ring holds rows kC u + j (rows past
+    rb hold 0); a rep sends each thread's last row (the ragged last thread
+    its row ``last - 1``) to thread u + 1, the ring's last thread to thread
+    0, then shifts its registers down one slot with 1 added. -> (out
+    [8 rows / rb, 128], the ring's rows at each thread, for the checks)."""
+    lay = micro.roll_layout(rb)
+    kc, threads = lay.rows_per_thread, 32 * lay.warps
+    blocks = a.reshape(-1, rb, 128)[..., :1 if narrow else 128]          # [nblk, rb, cols]
+    rows_of = kc * np.arange(threads)[:, None] + np.arange(kc)[None]     # [u, j]
+    held = rows_of < rb
+    regs = np.where(held[None, None], np.swapaxes(blocks, 1, 2)[:, :, np.minimum(rows_of, rb - 1)],
+                    F32(0))                                              # [nblk, cols, u, j]
+    for _ in range(reps):
+        send = regs[..., kc - 1].copy()
+        send[..., lay.used - 1] = regs[..., lay.used - 1, lay.last - 1]
+        got = np.concatenate([send[..., lay.used - 1:lay.used], send[..., :-1]], -1)
+        shifted = np.empty_like(regs)
+        shifted[..., 1:] = regs[..., :-1] + F32(1)
+        shifted[..., 0] = got + F32(1)
+        regs = shifted
+    out = np.zeros((blocks.shape[0], micro.OUT_ROWS, blocks.shape[2]), F32)
+    for row in range(micro.OUT_ROWS):
+        out[:, row] = regs[:, :, row // kc, row % kc]
+    out = np.broadcast_to(out, out.shape[:2] + (128,)) if narrow else out
+    return out.reshape(-1, 128), rows_of[:lay.used][held[:lay.used]]
+
+
+def _gather_model(a, idx, rb, reps):
+    """``probe_micro_kernel<gather>``: each 64-row block stages its rows at a
+    pitch of 160 (the first 32 values again), bins its outputs by the bank of
+    their start (idx mod 32; the pitch is 0 mod 32) in a counting sort, and
+    group g takes the g-th output of each bank, lane b bank b's (a lane past
+    its bank's outputs reads a dummy window on bank b). Each sum adds its
+    window in chunks of 32 from (idx + c) mod 128, in rep order. The sorted
+    list holds 2-byte entries, bank b's from 2b on in a region of a multiple
+    of 64. Checks that every output is taken once, that the list fits, and
+    that every group's list read and its read at every rep each hit 32
+    distinct banks. -> out [8 rows / rb, 128]."""
+    rows = a.shape[0]
+    sums = np.zeros((rows, 128), F32)
+    blk_rows = micro.GATHER_ROWS
+    for r0 in range(0, rows, blk_rows):
+        nr = min(blk_rows, rows - r0)
+        staged = np.concatenate([a[r0:r0 + nr], a[r0:r0 + nr, :32]], 1)   # [nr, 160]
+        start = idx[r0:r0 + nr].reshape(-1)                              # output o = row 128 + col
+        key = start & 31
+        order = np.argsort(key, kind="stable")                           # the counting sort
+        count = np.bincount(key, minlength=32)
+        first = np.cumsum(count) - count
+        size = (2 * np.arange(32) + count + 63) // 64 * 64
+        place = np.cumsum(size) - size + 2 * np.arange(32)              # bank b's first entry
+        assert size.sum() <= GATHER_LIST
+        groups = count.max()
+        taken = np.zeros(nr * 128, int)
+        lane = np.arange(32)
+        for g in range(groups):
+            live = g < count
+            words = (place + g)[live] // 2                               # 2-byte entries
+            assert len(np.unique(words % 32)) == live.sum()
+            o = np.where(live, order[np.minimum(first + g, nr * 128 - 1)], 0)
+            s = np.where(live, start[o], lane)                           # dummy: row 0 at `lane`
+            assert (s & 31 == lane).all()
+            row = np.where(live, o // 128, 0)
+            acc = np.zeros(32, F32)
+            for c in range(0, reps, 32):
+                w = (s + c) & 127
+                for r in range(min(32, reps - c)):
+                    addr = row * GATHER_PITCH + w + r
+                    assert len(np.unique(addr % 32)) == 32                # one wavefront
+                    acc = acc + staged[row, w + r]
+            taken[o[live]] += 1
+            sums[r0 + row[live], o[live] % 128] = acc[live]
+        assert (taken == 1).all()
+    out_rows = np.arange(rows) % rb < micro.OUT_ROWS
+    return sums[out_rows]
+
+
+def _vadd_model(a, rb, reps):
+    """``probe_micro_kernel<vadd>``: thread t takes float4s 4t .. 4t + 3, one
+    row's 16 values, and its store guard once. -> out [8 rows / rb, 128]."""
+    rows = a.shape[0]
+    q = 4 * np.arange(rows * 32 // 4)[:, None] + np.arange(4)[None]      # [thread, k]
+    assert (q // 32 == (q[:, :1] // 32)).all()                          # one row a thread
+    assert np.array_equal(np.sort(q.reshape(-1)), np.arange(rows * 32))  # each float4 once
+    v = a.reshape(-1, 4)[q].reshape(-1, 16)                              # [thread, 16 chains]
+    for _ in range(reps):
+        v = v * F32(micro.VADD_SCALE) + F32(1)
+    keep = (q[:, 0] // 32) % rb < micro.OUT_ROWS                         # the guard, once
+    return v[keep].reshape(-1, 128)
+
+
+@functools.lru_cache(maxsize=None)
+def _layout_case(rb):
+    rng = np.random.default_rng(9)
+    rows = rb if rb > 98 else 2 * rb
+    a = rng.uniform(0, 1, (rows, 128)).astype(np.float32)
+    idx = rng.integers(0, 128, (rows, 128)).astype(np.int32)
+    return a, idx
+
+
+@functools.lru_cache(maxsize=None)
+def _tpu_micro_case(op, rb, reps):
+    a, idx = _layout_case(rb)
+    return _tpu_micro(a, idx, op, reps, rb)
+
+
+def _layout_model(op, a, idx, rb, reps):
+    if op.startswith("roll"):
+        out, rows = _roll_model(a, rb, reps, op == "roll_narrow")
+        assert np.array_equal(np.sort(rows), np.arange(rb))             # each row held once
+        return out
+    if op == "gather":
+        return _gather_model(a, idx, rb, reps)
+    return _vadd_model(a, rb, reps)
+
+
+@pytest.mark.parametrize("reps", [0, 1, 8, 32])
+@pytest.mark.parametrize("rb", [98, 1568])
+@pytest.mark.parametrize("op", ["roll_narrow", "roll_wide", "gather", "vadd"])
+def test_micro_layout_model_matches_plain_and_tpu_kernel(op, rb, reps):
+    """The kernels' layouts compute the probe's function: bit-equal to the
+    plain version, and to the TPU body in interpret mode (vadd within 1e-6 x
+    max(1, max|out|): XLA may contract it into an FMA)."""
+    a, idx = _layout_case(rb)
+    out = _layout_model(op, a, idx, rb, reps)
+    plain = micro.micro_plain(torch.from_numpy(a), torch.from_numpy(idx), op, reps, rb).numpy()
+    np.testing.assert_array_equal(out, plain)
+    ref = _tpu_micro_case(op, rb, reps)
+    np.testing.assert_allclose(out, ref, rtol=0, atol=MICRO_TOL[op] * max(1.0, np.abs(ref).max()))
+
+
+@pytest.mark.parametrize("rb", [8, 33, 1000, 2049, 5000])
+def test_roll_layout_model_at_other_ring_sizes(rb):
+    """The roll's ragged last thread and rings over several warps: the model
+    holds each row once and equals the plain version."""
+    rng = np.random.default_rng(rb)
+    a = rng.uniform(0, 1, (2 * rb, 128)).astype(np.float32)
+    lay = micro.roll_layout(rb)
+    assert lay.used <= 32 * lay.warps and 1 <= lay.last <= lay.rows_per_thread
+    for op in ("roll_narrow", "roll_wide"):
+        for reps in (0, 3, lay.rows_per_thread + 1):
+            out = _layout_model(op, a, None, rb, reps)
+            plain = micro.micro_plain(torch.from_numpy(a), torch.zeros(2 * rb, 128, dtype=torch.int32),
+                                      op, reps, rb).numpy()
+            np.testing.assert_array_equal(out, plain)
+
+
 def test_bd_matmul_plain_covers_every_row():
     """bd_matmul's plain version over every row (the TPU body's full product,
     which the kernel keeps through its group sums): reps times the exclusive
@@ -495,6 +673,15 @@ def test_session_runs_on_the_cpu(capsys):
     assert sum(n.startswith("dense_") for n in names) == len(scan.SCAN_MODES)
     assert all(r["ok"] and r["max_abs_err"] == 0.0 for r in parity)
     assert not [r for r in recs if r["kind"] == "time"]
+
+
+def test_reps_sweep_needs_a_card():
+    """``python -m mpinets_torch.probes.reps`` times on the card only."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the sweep would run")
+    from mpinets_torch.probes import reps
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        reps.main([])
 
 
 def test_session_needs_a_card_unless_told_cpu():

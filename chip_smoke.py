@@ -8,7 +8,8 @@ FPS and probe instantiation's registers and spills, failing on a spill --
 every SA, FPS, scan, roll and micro-op instantiation is gated -- and the
 launch plans, counting the tensor-core ``HMMA`` instructions in the built
 SASS where the toolkit has ``cuobjdump``, and failing unless the roll's rep
-loop at the probe session's rb issues one FADD a held row for each SHFL),
+loop at the probe session's rb issues one FADD a held row for each SHFL and
+bd_matmul's rep loop 97 FADD for each FMUL and no f32/bf16 conversion),
 holds each kernel against its plain PyTorch
 version at the main path's shapes -- FPS (each plan the main paths use, at
 B=1, 3 and 256, on the assembled cloud and on a cloud of exact ties), the
@@ -85,8 +86,10 @@ before the redesign (``SCAN_WAS_MS``; the log line only), and its
 instantiation's registers, spills and blocks a SM (a spill fails the build
 phase); each micro op (gather, the rolls, vadd, bd_matmul) at 8 and 32 reps
 the same way (its kernel's registers, spills, blocks a SM, threads and
-shared memory at the session's rb), and roll_narrow beside the session's
-launch floor (``probe_scratch``). The session also checks the micro ops at
+shared memory at the session's rb), and roll_narrow and the scratch probe
+beside the session's launch floor (``launch_floor_ms``: an empty kernel,
+``probe_empty_kernel``, timed in the same loop), which must be above 0 and
+below every probe's time. The session also checks the micro ops at
 other layouts (``session.MICRO_EDGE_CASES``: a ragged last thread, rings
 over several warps, reps 0). Bounds count uncontracted f32 operations at
 the card's non-FMA rate (``session.F32_NOFMA_OPS``) and gather's
@@ -119,7 +122,10 @@ stands for every TPU script probe that computes the same function), its
 launches in the timed runs of the probe session; a scan mode's entry also
 has this run's ``bound_share``, ``registers``, ``spills``,
 ``blocks_per_sm`` and ``smem_bytes``, and a micro op's this run's
-``bound_share``, ``registers`` and ``spills``.
+``bound_share``, ``registers`` and ``spills``. A probe's ``bound_ms`` and
+``bound_by`` are its bytes or operations bound; ``launch_floor_ms`` is the
+session's launch floor, and ``bound_share`` is the larger of the two over
+``ms``.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -422,9 +428,9 @@ def sass_hmma(lib):
 def sass_loops(lib, pattern):
     """The loops of the kernel whose mangled name matches ``pattern`` in a
     built library's SASS: for each backward branch, the instructions from its
-    target to it, and the FADD and SHFL among them. -> a list of
-    {"instructions", "fadd", "shfl"}, or None where the toolkit has no
-    cuobjdump."""
+    target to it, and the FADD, FMUL, SHFL and f32/bf16 conversions (F2F,
+    F2FP) among them. -> a list of {"instructions", "fadd", "fmul", "shfl",
+    "f2f"}, or None where the toolkit has no cuobjdump."""
     import re
 
     sass = sass_text(lib)
@@ -460,9 +466,10 @@ def sass_loops(lib, pattern):
         target = labels.get(target, -1) if isinstance(target, str) else target
         if 0 <= target <= addr:
             body = [t for a, t in insts if target <= a <= addr]
-            loops.append({"instructions": len(body),
-                          "fadd": sum(bool(re.search(r"\bFADD\b", t)) for t in body),
-                          "shfl": sum(bool(re.search(r"\bSHFL\b", t)) for t in body)})
+            count = lambda op: sum(bool(re.search(op, t)) for t in body)
+            loops.append({"instructions": len(body), "fadd": count(r"\bFADD\b"),
+                          "fmul": count(r"\bFMUL\b"), "shfl": count(r"\bSHFL\b"),
+                          "f2f": count(r"\bF2FP?\b")})
     return loops
 
 
@@ -2217,6 +2224,7 @@ def main() -> int:
                   *(f"probe_scan_kernel<{m}>" for m in range(len(scan.SCAN_MODES))),
                   *micro.roll_instantiations(),
                   *(f"probe_micro_kernel<{micro.MICRO_OPS.index(o)}>" for o in ("gather", "vadd")),
+                  "probe_prefix_kernel",
                   *(f"fps_kernel<{t}, {p_}, cluster={int(c)}>" for t in ("f32", "bf16")
                     for c in (False, True) for p_ in ((8,) if c else ops.FPS_POINTS_PER_THREAD))):
         res = resources.get(kname, {})
@@ -2234,6 +2242,18 @@ def main() -> int:
             f"{[(lp['instructions'], lp['fadd'], lp['shfl']) for lp in loops]}")
         if not any(lp["shfl"] and lp["fadd"] == kc * lp["shfl"] for lp in loops):
             raise AssertionError(f"{roll_plan['kernel']}: no rep loop with {kc} FADD a SHFL: {loops}")
+    # bd_matmul's rep loop: a rep is one FMUL (|acc[1]| * 0) and 49 + 48
+    # FADD (the accumulators and the prefix; the 49th prefix add is dead), and
+    # no f32/bf16 conversion: the values are converted once, at the load
+    loops = sass_loops(ops._target("probes"), r"probe_prefix_kernel")
+    if loops is not None:
+        log("probe_prefix_kernel SASS loops (instructions, FADD, FMUL, F2F/F2FP): "
+            f"{[(lp['instructions'], lp['fadd'], lp['fmul'], lp['f2f']) for lp in loops]}")
+        per_rep = 2 * micro.GROUP - 1
+        if (not any(lp["fmul"] and lp["fadd"] == per_rep * lp["fmul"] for lp in loops)
+                or any(lp["f2f"] for lp in loops)):
+            raise AssertionError(f"probe_prefix_kernel: no rep loop of {per_rep} FADD a FMUL "
+                                 f"without conversions: {loops}")
     hmma = sass_hmma(ops._target("sa"))
     if hmma is None:
         log("cuobjdump not found: HMMA count skipped")
@@ -2824,6 +2844,13 @@ def main() -> int:
     for k in PROBE_KERNELS:
         if not timed_launches[k]:
             raise AssertionError(f"TPU probe session: kernel {k} was not launched")
+    # the launch floor: an empty kernel in the same loop, above 0 and below
+    # every probe's time
+    floor = next(r for r in records if r["kind"] == "device")["launch_floor_ms"]
+    log(f"launch floor (probe_empty_kernel <<<1, 32>>>, the probes' loop): {floor:.5f} ms [{smi}]")
+    if not 0 < floor < min(r["ms"] for r in probe_times):
+        raise AssertionError(f"launch floor {floor} ms not above 0 and below every probe's time: "
+                             f"{ {r['name']: r['ms'] for r in probe_times} }")
     sa0_exact = next(r for r in records if r["kind"] == "time" and r["kernel"] == "sa")
     stages = {r["name"]: r["ms"] for r in probe_times if r["kernel"] == "probe_scan"}
     log(f"SA0 scan stages at B=256, N=6272, S=512, r=0.05 (ms): {stages}; SA0 exact (v8, bf16) "
@@ -2863,11 +2890,15 @@ def main() -> int:
                 f"{100 * info['bound_share']:.1f}% of it; {plan['kernel']}: {info['registers']} "
                 f"registers, {info['spills']} spill bytes, {plan['blocks_per_sm']} blocks a SM of "
                 f"{plan['threads']} threads at {plan['smem_bytes']} B [{smi}]")
-    scratch_ms = next(r["ms"] for r in probe_times if r["kernel"] == "probe_scratch")
-    log("  roll_narrow beside the launch floor (probe_scratch, one block): "
-        + ", ".join(f"{r['name']} {r['ms']:.4f} ms" for r in probe_times
-                    if r["name"].startswith("micro_roll_narrow_r"))
-        + f"; probe_scratch {scratch_ms:.4f} ms [{smi}]")
+    log(f"  beside the launch floor {floor:.5f} ms: "
+        + ", ".join(f"{r['name']} {r['ms']:.5f} ms ({r['ms'] / floor:.2f}x)" for r in probe_times
+                    if r["name"].startswith("micro_roll_narrow_r")
+                    or r["kernel"] == "probe_scratch") + f" [{smi}]")
+    probe_rank = Counter()
+    for r in probe_times:
+        probe_rank[r["kernel"]] += r["launches"] * (r["ms"] - r["bound_ms"])
+    log("probe session: launches x (ms - bound ms, the launch floor included): "
+        + "; ".join(f"{k} {v:.1f}" for k, v in probe_rank.most_common()) + f" [{smi}]")
 
     # ---- 6. each kernel at each shape the main paths launched it at --------
     phase("kernels at the main paths' shapes: vs plain, times and bounds (bf16; _f32: f32)")
@@ -2917,8 +2948,9 @@ def main() -> int:
             "source": CUDA_SOURCES[r["kernel"]],
             "replaces": r["replaces"], "launches": r["launches"],
             "max_abs_err": parity[r["name"]]["max_abs_err"], "ms": r["ms"],
-            "plain_ms": parity[r["name"]]["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "plain_ms": parity[r["name"]]["plain_ms"], "bound_ms": r["work_bound_ms"],
+            "bound_by": r["work_bound_by"], "library_ms": r["library_ms"],
+            "launch_floor_ms": floor,
             "stands_for": r["stands_for"], **scan_info.get(r["name"], {}),
             **micro_info.get(r["name"], {}),
         })

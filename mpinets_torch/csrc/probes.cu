@@ -707,17 +707,43 @@ __global__ void __launch_bounds__(kRollThreads) probe_roll_kernel(RollArgs p) {
   }
 }
 
-// bd_matmul: one thread per (lane, 49-row group); the group's values in
-// registers. Each rep adds the exclusive prefix of v down the group to acc,
-// then makes v depend on acc (v <- bf16(acc * 0 + v), as the TPU body does)
-// so no rep can be hoisted. The TPU body computes every row's result; here
-// every row's is observable too: sums[group, l] = sum_j (acc[j] + v[j]) in
-// row order, so all 49 + 49 values stay live (rows 0..7 alone would let the
+// bd_matmul: one thread per (lane, 49-row group), 128 threads a block, the
+// group's bf16 values and f32 accumulators in registers (98 floats: with
+// __launch_bounds__(128, 4) at most 128 registers, four blocks a SM, so the
+// 512 blocks of the session's shape fill the card in one wave with 3.9 warps
+// a scheduler). A rep is the exclusive prefix of v added to acc, 49 + 48
+// __fadd_rn, and one __fmul_rn: each rep's running sum starts at
+// |acc[1]| * 0, not at 0. For finite acc that is +0, the plain version's
+// start (the fabsf, an operand modifier of the FMUL, keeps it +0 where
+// acc[1] < 0; a -0 start would give the same bits, as no accumulator is
+// ever -0), and it ties each rep's prefix to the previous rep's
+// accumulators, so the compiler can neither hoist the prefix out of the
+// loop nor merge reps: IEEE forbids folding x * 0 and reassociating the
+// adds, and the build has no --use_fast_math.
+// The TPU body ties v to acc[:, :1] instead, one dependency a row; here it
+// is one a (group, lane), and v is converted to bf16 once, at the load (a
+// tie a row, v = bf16(acc * 0 + v), would issue a multiply, an add and two
+// conversions an element a rep beside the two counted adds). Both ties are
+// identities on finite values; a non-finite acc[1] (row 0's value summed
+// over the reps) reaches every row of the group from the next rep on.
+// acc[1] is final two steps into a rep (acc[0] only ever adds the start,
+// so it would be a constant the compiler could fold), so the next rep's
+// chain of ~50 dependent adds can start while this one runs: with the rep
+// loop unrolled 4 times the compiler interleaves the reps' chains, which
+// the in-order issue of a warp needs to keep the FADD pipe full. A chain is
+// never split, as that would change the order of the adds. Every row's
+// result stays observable: sums[group, l] = sum_j (acc[j] + v[j]) in row
+// order, so all 49 + 49 values stay live (rows 0..7 alone would let the
 // compiler drop the rest of the group).
-__global__ void __launch_bounds__(kChunk) probe_prefix_kernel(const float* __restrict__ a,
-                                                              int rb, int reps,
-                                                              float* __restrict__ out,
-                                                              float* __restrict__ sums) {
+// The tensor cores lose here: the block-diagonal product is 49 x 64 x 128 x 2
+// FLOP a group a rep with the depth padded to 64 (64 rows padded: 64 x 64 x
+// 128 x 2), 411 (537) MFLOP a rep over 512 groups, 0.42 (0.54) us at 989
+// TFLOP/s bf16, against 0.19 us for the two adds an element at the non-FMA
+// f32 rate; and an MMA's summation order is not the plain version's.
+__global__ void __launch_bounds__(kChunk, 4) probe_prefix_kernel(const float* __restrict__ a,
+                                                                 int rb, int reps,
+                                                                 float* __restrict__ out,
+                                                                 float* __restrict__ sums) {
   const int l = threadIdx.x;
   const int groups = rb / kGroup;
   const int blk = blockIdx.x / groups;
@@ -729,16 +755,13 @@ __global__ void __launch_bounds__(kChunk) probe_prefix_kernel(const float* __res
     v[j] = __bfloat162float(__float2bfloat16_rn(src[(size_t)j * kChunk]));
     acc[j] = 0.f;
   }
+#pragma unroll 4
   for (int r = 0; r < reps; ++r) {
-    float run = 0.f;
+    float run = __fmul_rn(fabsf(acc[1]), 0.f);
 #pragma unroll
     for (int j = 0; j < kGroup; ++j) {
       acc[j] = __fadd_rn(acc[j], run);
       run = __fadd_rn(run, v[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-      v[j] = __bfloat162float(__float2bfloat16_rn(__fadd_rn(__fmul_rn(acc[j], 0.f), v[j])));
     }
   }
   float sum = 0.f;
@@ -787,6 +810,11 @@ __global__ void __launch_bounds__(kScratchRows * kChunk) probe_scratch_kernel(in
     __syncthreads();
   }
 }
+
+// The launch floor: an empty kernel of one warp, timed in the probes' loop
+// as the least time any launch takes there. A yardstick like a library
+// call's time; it replaces no TPU kernel and no main path calls it.
+__global__ void probe_empty_kernel() {}
 
 template <typename K>
 cudaError_t smem_optin(K kernel, size_t bytes) {
@@ -999,6 +1027,12 @@ int mpn_probe_scratch(int steps, float* out, void* stream) {
   if (steps < 1) return (int)cudaErrorInvalidValue;
   probe_scratch_kernel<<<1, kScratchRows * kChunk, 0, static_cast<cudaStream_t>(stream)>>>(steps,
                                                                                           out);
+  return (int)cudaGetLastError();
+}
+
+// The empty kernel, <<<1, 32>>>. Returns a cudaError_t.
+int mpn_probe_empty(void* stream) {
+  probe_empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
 }
 

@@ -110,6 +110,7 @@ _SIGNATURES = {
     "mpn_probe_micro_plan": [_I, _I, _P],
     "mpn_probe_wide": [_P, _P] + [_I] * 4 + [_P, _P],
     "mpn_probe_scratch": [_I, _P, _P],
+    "mpn_probe_empty": [_P],
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

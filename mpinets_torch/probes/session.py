@@ -17,13 +17,16 @@ their plain version on a small cloud with the scan's edge cases
 ``torch.Generator``. Bounds count uncontracted f32 operations at the
 card's non-FMA rate (:data:`F32_NOFMA_OPS`: the scan's distances and every
 micro-op's adds and multiplies) and gather's shared-memory reads at
-:data:`SMEM_WORDS_PER_S`.
+:data:`SMEM_WORDS_PER_S`; on the card no bound is below the launch floor,
+the time of an empty kernel (``probe_empty_kernel``, one warp) in the same
+loop (:func:`launch_floor_ms`).
 
 Each scan mode runs once, for every measurement of the scripts that
 computes the same function (:data:`SCAN_PROBES`). Each record is one JSON
 line on stdout: ``kind`` ``parity`` (kernel against plain), ``time``
 (milliseconds per call on the card, launches, bound, library call, the
-scripts' measurements it stands for) or ``device``. On the CPU (``device="cpu"``) the probes run
+scripts' measurements it stands for) or ``device`` (the card, its power
+limit and the launch floor). On the CPU (``device="cpu"``) the probes run
 smaller, the wrappers compute their plain versions, and nothing is timed.
 
 The scripts' XLA-only measurements (``top_k``, scatter-add, sort,
@@ -103,13 +106,15 @@ class Probe:
     rate: float = F32_FLOPS           # the card's rate for ``flops`` a second
     smem_reads: float = 0.0           # 4-byte shared-memory reads the probe's work needs
 
-    def bound(self):
-        """(ms, "bytes" | "operations"): the least time the card could take:
-        bytes over HBM's rate, or operations, the f32 ones at ``rate`` and
-        the shared-memory reads at :data:`SMEM_WORDS_PER_S`."""
-        t_bytes = self.nbytes / HBM_BYTES_PER_S
-        t_ops = max(self.flops / self.rate, self.smem_reads / SMEM_WORDS_PER_S)
-        return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    def bound(self, floor_ms: float = 0.0):
+        """(ms, "bytes" | "operations" | "launch"): the least time the card
+        could take: bytes over HBM's rate, or operations, the f32 ones at
+        ``rate`` and the shared-memory reads at :data:`SMEM_WORDS_PER_S`, or
+        ``floor_ms``, the launch floor, where that is larger."""
+        t_bytes = 1e3 * self.nbytes / HBM_BYTES_PER_S
+        t_ops = 1e3 * max(self.flops / self.rate, self.smem_reads / SMEM_WORDS_PER_S)
+        return max((t_bytes, "bytes"), (t_ops, "operations"), (floor_ms, "launch"),
+                   key=lambda t: t[0])
 
 
 def _by_rows(fn, *tensors, rows=PLAIN_ROWS):
@@ -368,15 +373,34 @@ def check(probe: Probe) -> Dict:
                 plain_ms=plain_ms)
 
 
-def time_probe(probe: Probe) -> Dict:
+def empty_launch(device) -> None:
+    """One launch of ``probe_empty_kernel`` (``<<<1, 32>>>``, no body) on a
+    CUDA device: the launch floor's yardstick. It replaces no TPU kernel,
+    no main path calls it, and it is not counted in ``ops.LAUNCHES``."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the empty kernel runs on a CUDA device, got {device}")
+    ops._launch("probes", "mpn_probe_empty", device)
+
+
+def launch_floor_ms(device) -> float:
+    """The launch floor: milliseconds per empty kernel by :func:`diff_ms`,
+    the loop that times every probe, so no probe can read below it."""
+    return diff_ms(lambda: empty_launch(device))
+
+
+def time_probe(probe: Probe, floor_ms: float = 0.0) -> Dict:
     """The probe's time on the card (:func:`diff_ms`), its launches in this
-    timing, its bound, and the library call's time where there is one."""
+    timing, its bound with the launch floor ``floor_ms`` (``bound_ms``,
+    ``bound_by``) and without it (``work_bound_ms``, ``work_bound_by``:
+    bytes or operations), and the library call's time where there is one."""
     before = ops.LAUNCHES[probe.kernel]
     ms = diff_ms(probe.run)
-    bound_ms, bound_by = probe.bound()
+    bound_ms, bound_by = probe.bound(floor_ms)
+    work_ms, work_by = probe.bound()
     return dict(kind="time", name=probe.name, kernel=probe.kernel, ms=ms,
                 launches=ops.LAUNCHES[probe.kernel] - before, bound_ms=bound_ms,
-                bound_by=bound_by,
+                bound_by=bound_by, work_bound_ms=work_ms, work_bound_by=work_by,
                 library_ms=None if probe.library is None else diff_ms(probe.library),
                 replaces=probe.replaces, stands_for=list(probe.stands_for))
 
@@ -408,10 +432,11 @@ def _card() -> Optional[str]:
 
 
 def run(device=None, batch: Optional[int] = None, seed: int = 0) -> List[Dict]:
-    """The session: every probe (and the edge-case scan probes) against its
-    plain version -- raising if a kernel differs -- then, on a CUDA device,
-    every timed probe timed, with SA0 exact's time after the scan probes';
-    each record printed as a JSON line. -> the records."""
+    """The session: the card and, on a CUDA device, the launch floor; every
+    probe (and the edge-case scan probes) against its plain version --
+    raising if a kernel differs -- then, on a CUDA device, every timed probe
+    timed against its bound with that floor, with SA0 exact's time after the
+    scan probes'; each record printed as a JSON line. -> the records."""
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
     records = []
@@ -420,9 +445,10 @@ def run(device=None, batch: Optional[int] = None, seed: int = 0) -> List[Dict]:
         records.append(rec)
         print(json.dumps(rec), flush=True)
 
+    floor = launch_floor_ms(dev) if cuda else None
     out(dict(kind="device", device=dev.type, seed=seed, torch=torch.__version__,
              name=torch.cuda.get_device_name(dev) if cuda else "cpu",
-             card=_card() if cuda else None))
+             card=_card() if cuda else None, launch_floor_ms=floor))
     probes = edge_probes(dev, seed) + edge_micro_probes(dev, seed) + make_probes(dev, batch, seed)
     for probe in probes:
         out(check(probe))
@@ -433,7 +459,7 @@ def run(device=None, batch: Optional[int] = None, seed: int = 0) -> List[Dict]:
     last_scan = [p for p in timed if p.kernel == "probe_scan"][-1]
     if cuda:
         for probe in timed:
-            out(time_probe(probe))
+            out(time_probe(probe, floor))
             if probe is last_scan:
                 out(sa0_exact_ms(dev, batch, seed))
     return records

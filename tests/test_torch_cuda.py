@@ -789,8 +789,9 @@ def test_fused_train_kernels_match_plain_gradients(cuda, monkeypatch, sa_impl):
 # then every probe of the session at the scripts' full shapes
 # ---------------------------------------------------------------------------
 
-def _check_probe(kernel, run, plain):
-    """One launch, counted under ``kernel``, bit-equal to the plain version."""
+def _check_probe(kernel, run, plain, bits=False):
+    """One launch, counted under ``kernel``, bit-equal to the plain version
+    (``bits``: compared as int32 words, so signs of zero count too)."""
     before = ops.LAUNCHES[kernel]
     out = run()
     torch.cuda.synchronize()
@@ -798,6 +799,8 @@ def _check_probe(kernel, run, plain):
     ref = plain()
     assert out.shape == ref.shape
     assert torch.equal(out.cpu(), ref.cpu()), (out.cpu() - ref.cpu()).abs().max().item()
+    if bits:
+        assert torch.equal(out.cpu().view(torch.int32), ref.cpu().view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -830,35 +833,58 @@ def test_scan_probe_plan_and_largest_cloud(cuda, mode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("reps", [0, 8, 32])
+@pytest.mark.parametrize("reps", [0, 1, 8, 32, 33])
 @pytest.mark.parametrize("op", micro.MICRO_OPS)
 def test_micro_probe_matches_plain(cuda, op, reps):
     """Two blocks of rb = 98 rows (the roll's last thread holds 2 rows of 4),
     and of a ragged rb: 1,000 (8 rows of 32; bd_matmul 1,029 = 21 x 49); the
-    rolls also at 5,000 (a ring over 3 warps) and on a misaligned view (the
-    kernels' scalar loads)."""
+    rolls also at 5,000 (a ring over 3 warps); every op on a misaligned view
+    (the kernels' scalar loads). bd_matmul also on signed inputs with +0.0
+    and -0.0 planted, compared bit for bit, its group sums too."""
     rng = np.random.default_rng(6)
     rbs = [98, 1029 if op == "bd_matmul" else 1000] + [5000] * op.startswith("roll")
-    for rb in rbs:
-        a = torch.from_numpy(rng.uniform(0, 1, (2 * rb, 128)).astype(np.float32))
+    cases = [(rb, rng.uniform(0, 1, (2 * rb, 128)).astype(np.float32)) for rb in rbs]
+    if op == "bd_matmul":
+        for rb in (98, 1029):
+            a = rng.uniform(-1, 1, (2 * rb, 128)).astype(np.float32)
+            a[rng.random(a.shape) < 0.05] = 0.0
+            a[rng.random(a.shape) < 0.05] = -0.0
+            a[:5, :16] = -0.0
+            a[micro.GROUP:2 * micro.GROUP, 32:40] = -0.0
+            cases.append((rb, a))
+    for rb, a in cases:
+        a = torch.from_numpy(a)
         idx = torch.from_numpy(rng.integers(0, 128, (2 * rb, 128)).astype(np.int32))
         _check_probe("probe_micro",
                      lambda: micro.micro_probe(a.to(cuda), idx.to(cuda), op, reps, rb),
-                     lambda: micro.micro_probe(a, idx, op, reps, rb))
+                     lambda: micro.micro_probe(a, idx, op, reps, rb), bits=op == "bd_matmul")
         if op == "bd_matmul":   # every row's work, through the group sums
             _check_probe("probe_micro",
                          lambda: micro.micro_probe(a.to(cuda), idx.to(cuda), op, reps, rb, True)[1],
-                         lambda: micro.bd_matmul_plain(a, reps)[1])
-    if op != "bd_matmul":
-        flat = torch.from_numpy(rng.uniform(0, 1, 196 * 128 + 1).astype(np.float32))
-        a, idx = flat[1:].view(196, 128), torch.from_numpy(
-            rng.integers(0, 128, (196, 128)).astype(np.int32))
-        shifted = torch.zeros(196 * 128 + 1, dtype=torch.int32, device=cuda)[1:].view(196, 128)
-        shifted.copy_(idx)
-        _check_probe("probe_micro",
-                     lambda: micro.micro_probe(flat.to(cuda)[1:].view(196, 128), shifted, op, reps,
-                                               98),
-                     lambda: micro.micro_probe(a, idx, op, reps, 98))
+                         lambda: micro.bd_matmul_plain(a, reps)[1], bits=True)
+    flat = torch.from_numpy(rng.uniform(-1, 1, 196 * 128 + 1).astype(np.float32))
+    a, idx = flat[1:].view(196, 128), torch.from_numpy(
+        rng.integers(0, 128, (196, 128)).astype(np.int32))
+    shifted = torch.zeros(196 * 128 + 1, dtype=torch.int32, device=cuda)[1:].view(196, 128)
+    shifted.copy_(idx)
+    _check_probe("probe_micro",
+                 lambda: micro.micro_probe(flat.to(cuda)[1:].view(196, 128), shifted, op, reps, 98),
+                 lambda: micro.micro_probe(a, idx, op, reps, 98), bits=op == "bd_matmul")
+
+
+@pytest.mark.cuda
+def test_prefix_plan_and_launch_floor(cuda):
+    """bd_matmul's kernel fits four blocks of 128 threads a SM at the
+    session's rb (so its 512 blocks are one wave); the empty kernel
+    launches, and its time in the probes' loop lies above 0 and below the
+    scratch probe's."""
+    plan = micro.micro_plan(session.FULL["rb"], "bd_matmul")
+    assert (plan["kernel"], plan["threads"], plan["blocks_per_sm"]) == (
+        "probe_prefix_kernel", 128, 4), plan
+    session.empty_launch(cuda)
+    torch.cuda.synchronize()
+    floor = session.launch_floor_ms(cuda)
+    assert 0 < floor < session.diff_ms(lambda: design.scratch_probe(4, cuda))
 
 
 @pytest.mark.cuda

@@ -428,6 +428,19 @@ def test_micro_probe_bounds_use_the_non_fma_rate():
         1e3 * 2 * 32 * rows * 128 / session.F32_NOFMA_OPS, rel=1e-12)
     assert bounds["micro_gather_r32"][0] == pytest.approx(
         1e3 * 32 * rows * 128 / session.SMEM_WORDS_PER_S, rel=1e-12)
+    assert bounds["micro_bd_matmul_r32"] == pytest.approx(bounds["micro_vadd_r32"])
+
+
+def test_probe_bounds_take_the_launch_floor():
+    """On the card no probe's bound is below the launch floor (an empty
+    kernel in the same loop): where the floor is the larger time it sets the
+    bound, as ``launch``; elsewhere the bytes or operations do."""
+    probes = {p.name: p for p in session.make_probes("cpu")}
+    scratch, vadd = probes["scratch_when"], probes["micro_vadd_r32"]
+    work_ms, work_by = scratch.bound()
+    assert work_by == "bytes" and work_ms < 1e-5
+    assert scratch.bound(0.0021) == (0.0021, "launch")
+    assert vadd.bound(1e-9) == vadd.bound() and vadd.bound()[1] == "operations"
 
 
 # The kernels' work layouts (csrc/probes.cu), modelled in numpy and held
@@ -605,6 +618,53 @@ def test_bd_matmul_plain_covers_every_row():
     assert torch.equal(out, acc.view(2, 98, 128)[:, :8].reshape(16, 128))
 
 
+def _prefix_model(a, reps, tie=1):
+    """``probe_prefix_kernel``'s rep loop in float32 numpy, one (group, lane)
+    a column: the values rounded to bf16 once; each rep's running sum starts
+    at abs(acc[tie]) * 0 (the kernel ties to row 1), then acc[j] += run,
+    run += v[j] in row order; the group sums (acc[j] + v[j]) in row order.
+    -> (acc [rows / 49, 49, 128], sums [rows / 49, 128])."""
+    vals = torch.from_numpy(a).to(torch.bfloat16).float().numpy().reshape(-1, micro.GROUP, 128)
+    acc = np.zeros_like(vals)
+    for _ in range(reps):
+        run = np.abs(acc[:, tie]) * F32(0)
+        for j in range(micro.GROUP):
+            acc[:, j] = acc[:, j] + run
+            run = run + vals[:, j]
+    sums = np.zeros_like(vals[:, 0])
+    for j in range(micro.GROUP):
+        sums = (sums + acc[:, j]) + vals[:, j]
+    return acc, sums
+
+
+@pytest.mark.parametrize("tie", [1, 48])
+@pytest.mark.parametrize("reps", [0, 1, 8, 33])
+@pytest.mark.parametrize("rb", [98, 1029])
+def test_prefix_model_matches_plain_bit_for_bit(rb, reps, tie):
+    """The kernel's rep loop (a rep's running sum started at |acc[tie]| * 0,
+    not 0: row 1 in the kernel, or the group's last row) equals
+    ``bd_matmul_plain`` bit for bit, signs of zero included, on signed
+    inputs with +0.0 and -0.0 planted: in single entries, in the first rows
+    of groups, and down a whole group in some lanes."""
+    rng = np.random.default_rng(rb + reps)
+    a = rng.uniform(-1, 1, (2 * rb, 128)).astype(np.float32)
+    a[rng.random(a.shape) < 0.05] = 0.0
+    a[rng.random(a.shape) < 0.05] = -0.0
+    a[:5, :16] = -0.0
+    a[micro.GROUP:micro.GROUP + 3, 16:32] = 0.0
+    a[2 * micro.GROUP:3 * micro.GROUP, 32:40] = -0.0
+    assert np.signbit(a[a == 0]).any() and not np.signbit(a[a == 0]).all()
+    acc, sums = _prefix_model(a, reps, tie)
+    ref_acc, ref_sums = (t.numpy() for t in micro.bd_matmul_plain(torch.from_numpy(a), reps))
+    np.testing.assert_array_equal(acc.view(np.uint32), ref_acc.view(np.uint32))
+    np.testing.assert_array_equal(sums.view(np.uint32), ref_sums.view(np.uint32))
+    out, group_sums = micro.micro_probe(torch.from_numpy(a), torch.zeros(2 * rb, 128, dtype=torch.int32),
+                                        "bd_matmul", reps, rb, return_group_sums=True)
+    model_out = acc.reshape(2, rb, 128)[:, :micro.OUT_ROWS].reshape(-1, 128)
+    np.testing.assert_array_equal(out.numpy().view(np.uint32), model_out.view(np.uint32))
+    np.testing.assert_array_equal(group_sums.numpy().view(np.uint32), sums.view(np.uint32))
+
+
 def test_wide_gather_matches_tpu_kernel():
     rng = np.random.default_rng(7)
     tab = rng.normal(size=(2, 224, 128)).astype(np.float32)
@@ -663,6 +723,7 @@ def test_session_runs_on_the_cpu(capsys):
     assert probes_main.main(["--device", "cpu", "--seed", "3"]) == 0
     recs = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
     assert recs[0]["kind"] == "device" and recs[0]["device"] == "cpu"
+    assert recs[0]["launch_floor_ms"] is None
     parity = [r for r in recs if r["kind"] == "parity"]
     names = {r["name"] for r in parity}
     assert {f"scan_{mode}" for mode in scan.SCAN_MODES} <= names
@@ -680,8 +741,11 @@ def test_reps_sweep_needs_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the sweep would run")
     from mpinets_torch.probes import reps
+    assert reps.OPS == micro.MICRO_OPS
     with pytest.raises(RuntimeError, match="no CUDA device"):
         reps.main([])
+    with pytest.raises(ValueError, match="CUDA device"):
+        session.empty_launch("cpu")
 
 
 def test_session_needs_a_card_unless_told_cpu():

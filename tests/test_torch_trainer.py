@@ -61,7 +61,8 @@ def dataset(tmp_path_factory):
 def two_rank_runs(tmp_path_factory, dataset):
     """Both data modes on two gloo ranks each (``tests/torch_dist_worker.py``),
     started with the module so that they run beside its other tests:
-    mode -> (workdir, wait)."""
+    mode -> (workdir, wait). Their directories (~1.2 GB each) go with the
+    module, pass or fail."""
     from torch_dist_worker import launch
 
     runs = {}
@@ -73,7 +74,20 @@ def two_rank_runs(tmp_path_factory, dataset):
             overrides["data"] = {**TINY["data"], "data_dir": str(dataset)}
         (work / "config.json").write_text(json.dumps(overrides))
         runs[mode] = (work, launch("trainer", work))
-    return runs
+    yield runs
+    for work, _ in runs.values():
+        shutil.rmtree(work, ignore_errors=True)
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """Each test's directory, removed when the test ends, pass or fail. A
+    train checkpoint of the full-width head holds 229-305 MB, the module's
+    tests write ~3.5 GB of them beside the two-rank runs' 2.4 GB, and
+    pytest keeps its last three runs' directories: left in place they
+    filled the disk under a later run's checkpoint writes."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def test_ema_update():
@@ -268,8 +282,6 @@ def test_trainer_hdf5_mode_validates_on_the_val_split(tmp_path, dataset):
     cfg2.data.synthetic = False
     resumed = Trainer(cfg2, test=True, should_log=False, device="cpu")
     assert resumed.run().step == 20
-    for exp in (trainer.ckpt_dir, resumed.ckpt_dir):   # two runs' checkpoints, ~0.9 GB
-        shutil.rmtree(exp)
 
 
 @pytest.mark.parametrize("mode", ["synthetic", "hdf5"])

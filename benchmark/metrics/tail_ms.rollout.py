@@ -1,0 +1,10 @@
+"""Device milliseconds a policy step of the traced rollout of the
+operations launched under the program's ``policy.tail`` spans: the kernel
+forward's dense tail (global SA, FC head, q-encoder, decoder). None where
+the profile has no such span. Moves ``env_steps_per_s``."""
+
+from benchmark import spans
+
+
+def read(ctx):
+    return spans.per_step_ms(spans.device_us_under(ctx["prof"], "policy.tail"), ctx)

@@ -19,6 +19,7 @@ from mpinets_torch.geom.assembly import PointCloudSizes, assemble_point_cloud
 from mpinets_torch.geom.scene import ObstacleDraws, SceneSet, draw_obstacle_samples
 from mpinets_torch.kernels import kinematics
 from mpinets_torch.robot import franka, point_banks
+from mpinets_torch.utils import trace
 from mpinets_torch.utils.normalization import clamp_to_limits, normalize_franka_joints
 
 SEQUENCE_LENGTH = 50  # gen_data.py:77
@@ -56,8 +57,9 @@ def _uniform(generator, shape, lo, hi, device):
 def random_configuration(generator: Optional[torch.Generator] = None, shape=(),
                          device=None) -> torch.Tensor:
     """Uniform sample inside the real joint limits, [*shape, 7]."""
-    limits = torch.as_tensor(franka.REAL_JOINT_LIMITS, dtype=torch.float32,
-                             device=device)
+    with trace.h2d_wait("random_configuration", device):
+        limits = torch.as_tensor(franka.REAL_JOINT_LIMITS, dtype=torch.float32,
+                                 device=device)
     u = torch.rand(tuple(shape) + (franka.DOF,), generator=generator, device=device)
     return limits[:, 0] + u * (limits[:, 1] - limits[:, 0])
 
@@ -75,7 +77,8 @@ def random_scene(generator: Optional[torch.Generator] = None, batch_size: int = 
     kw = dict(device=device)
 
     def vec(*v):
-        return torch.tensor(v, dtype=torch.float32, **kw)
+        with trace.h2d_wait("random_scene", device):
+            return torch.tensor(v, dtype=torch.float32, **kw)
 
     table_center = vec(0.6, 0.0, 0.18) + _uniform(g, (b, 3), -0.05, 0.05, device) * vec(1.0, 2.0, 1.0)
     table_dims = vec(0.7, 1.2, 0.04) + _uniform(g, (b, 3), 0.0, 0.2, device)
@@ -190,29 +193,30 @@ def training_batch(
     the supervision the next configuration. ``draws`` replaces the draws
     from ``generator``.
     """
-    if draws is None:
-        draws = draw_training_batch(generator, batch_size, sizes, device)
-    scene = draws.scene
-    traj = min_jerk_trajectory(draws.q0, draws.q_goal)       # [B, T, 7]
-    t = draws.t.long()
-    rows = torch.arange(traj.shape[0], device=traj.device)
-    q_t = traj[rows, t]
-    q_next = traj[rows, torch.clamp(t + 1, 0, SEQUENCE_LENGTH - 1)]
-    rot_goal, trans_goal = kinematics.eff_pose(draws.q_goal)
-    q_noisy = clamp_to_limits(q_t + random_scale * draws.noise)
-    xyz = assemble_point_cloud(q_noisy, rot_goal, trans_goal, scene, sizes,
-                               robot_indices=draws.robot_indices,
-                               obstacle_draws=draws.obstacle)
-    return {
-        "xyz": xyz,
-        "configuration": normalize_franka_joints(q_noisy),
-        "supervision": normalize_franka_joints(q_next),
-        "target_position": trans_goal,
-        "cuboid_centers": scene.cuboid_centers,
-        "cuboid_dims": scene.cuboid_dims,
-        "cuboid_quats": scene.cuboid_quats,
-        "cylinder_centers": scene.cylinder_centers,
-        "cylinder_radii": scene.cylinder_radii,
-        "cylinder_heights": scene.cylinder_heights,
-        "cylinder_quats": scene.cylinder_quats,
-    }
+    with trace.span("train.batch"):
+        if draws is None:
+            draws = draw_training_batch(generator, batch_size, sizes, device)
+        scene = draws.scene
+        traj = min_jerk_trajectory(draws.q0, draws.q_goal)       # [B, T, 7]
+        t = draws.t.long()
+        rows = torch.arange(traj.shape[0], device=traj.device)
+        q_t = traj[rows, t]
+        q_next = traj[rows, torch.clamp(t + 1, 0, SEQUENCE_LENGTH - 1)]
+        rot_goal, trans_goal = kinematics.eff_pose(draws.q_goal)
+        q_noisy = clamp_to_limits(q_t + random_scale * draws.noise)
+        xyz = assemble_point_cloud(q_noisy, rot_goal, trans_goal, scene, sizes,
+                                   robot_indices=draws.robot_indices,
+                                   obstacle_draws=draws.obstacle)
+        return {
+            "xyz": xyz,
+            "configuration": normalize_franka_joints(q_noisy),
+            "supervision": normalize_franka_joints(q_next),
+            "target_position": trans_goal,
+            "cuboid_centers": scene.cuboid_centers,
+            "cuboid_dims": scene.cuboid_dims,
+            "cuboid_quats": scene.cuboid_quats,
+            "cylinder_centers": scene.cylinder_centers,
+            "cylinder_radii": scene.cylinder_radii,
+            "cylinder_heights": scene.cylinder_heights,
+            "cylinder_quats": scene.cylinder_quats,
+        }

@@ -23,6 +23,7 @@ import torch
 from torch.nn import functional as F
 
 from mpinets_torch.kernels import ops
+from mpinets_torch.utils import trace
 
 
 def stage_sizes(model):
@@ -141,7 +142,8 @@ def fused_policy_apply(
 
     _, cent1 = ops.furthest_point_sample_with_coords(cent0, sa_npoints[1], impl=fps_impl)
     f1, _ = ops.sa_stage(cent0.float(), f0, cent1.float(), w1, **sa1, **exact)
-    return tail(model, cent1.float(), f1, q_norm, cdt)
+    with trace.span("policy.tail"):
+        return tail(model, cent1.float(), f1, q_norm, cdt)
 
 
 def make_fused_apply(compute_dtype=torch.bfloat16, sa_npoints: tuple = (512, 128),

@@ -17,6 +17,7 @@ import torch
 
 from mpinets_torch.kernels import kinematics
 from mpinets_torch.robot import franka, point_banks
+from mpinets_torch.utils import trace
 
 
 def _group_slices(frames: np.ndarray):
@@ -50,7 +51,8 @@ def bank_point_cloud(
     surface bank; "loss": the fixed loss bank). q: [..., 7] -> [..., P, 3]."""
     points, groups = _prepared_bank(bank_key, num_bank_points, seed)
     rots, transs = kinematics.fk_frames(q)
-    pts = torch.as_tensor(points, dtype=q.dtype, device=q.device)
+    with trace.h2d_wait("point_bank", q.device):
+        pts = torch.as_tensor(points, dtype=q.dtype, device=q.device)
     chunks = []
     for frame, a, b in groups:
         r = rots[..., frame, :, :]
@@ -129,8 +131,9 @@ def sample_end_effector(
     eff_rot: [..., 3, 3]; eff_trans: [..., 3] (right_gripper frame pose)
     -> [..., num_points, 3]
     """
-    local = torch.as_tensor(
-        _gripper_bank_eff_local(num_points, seed),
-        dtype=eff_trans.dtype, device=eff_trans.device,
-    )
+    with trace.h2d_wait("gripper_bank", eff_trans.device):
+        local = torch.as_tensor(
+            _gripper_bank_eff_local(num_points, seed),
+            dtype=eff_trans.dtype, device=eff_trans.device,
+        )
     return torch.einsum("...ij,pj->...pi", eff_rot, local) + eff_trans[..., None, :]

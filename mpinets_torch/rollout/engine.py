@@ -27,6 +27,7 @@ from mpinets_torch.geom.assembly import (
 )
 from mpinets_torch.kernels import kinematics
 from mpinets_torch.robot import sampler
+from mpinets_torch.utils import trace
 from mpinets_torch.utils.device import resolve_device
 from mpinets_torch.utils.normalization import (
     normalize_franka_joints,
@@ -132,21 +133,23 @@ def make_rollout_fn(
         qs = [problem.q0]
 
         for t in range(max_steps):
-            delta = policy(model, xyz, q_norm)
-            q_norm_next = torch.clamp(q_norm + delta, -1.0, 1.0)  # model.py:171
-            if stop_on_success:
-                q_norm_next = torch.where(done[:, None], q_norm, q_norm_next)
-            q_next = unnormalize_franka_joints(q_norm_next)
-            success = success_predicate(q_next, problem.target_rot, problem.target_trans)
-            num_steps = num_steps + (~done).to(torch.int32)
-            if stop_on_success:
-                done = done | success
-            # Resample the robot segment at the new config (model.py:180-181).
-            robot = sampler.sample_robot_points(
-                q_next, generator, sizes.robot,
-                indices=None if robot_indices is None else robot_indices[t].to(device),
-            )
-            xyz = update_robot_points(xyz, robot)
+            with trace.span("rollout.policy"):
+                delta = policy(model, xyz, q_norm)
+            with trace.span("rollout.env"):
+                q_norm_next = torch.clamp(q_norm + delta, -1.0, 1.0)  # model.py:171
+                if stop_on_success:
+                    q_norm_next = torch.where(done[:, None], q_norm, q_norm_next)
+                q_next = unnormalize_franka_joints(q_norm_next)
+                success = success_predicate(q_next, problem.target_rot, problem.target_trans)
+                num_steps = num_steps + (~done).to(torch.int32)
+                if stop_on_success:
+                    done = done | success
+                # Resample the robot segment at the new config (model.py:180-181).
+                robot = sampler.sample_robot_points(
+                    q_next, generator, sizes.robot,
+                    indices=None if robot_indices is None else robot_indices[t].to(device),
+                )
+                xyz = update_robot_points(xyz, robot)
             q_norm = q_norm_next
             if record_trajectory:
                 qs.append(q_next)

@@ -30,6 +30,7 @@ import torch.distributed as dist
 from mpinets_torch.geom.scene import SceneSet
 from mpinets_torch.parallel.mesh import DATA_AXIS, axis_group, rank_generator, shard_leading_axis
 from mpinets_torch.train import loss as losses
+from mpinets_torch.utils import trace
 
 LEARNING_RATE = 1e-4
 GRAD_CLIP = 1.0
@@ -199,12 +200,13 @@ def make_train_step(
     the EMA, and the step count. Metrics stay on the device, detached."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        state.optimizer.zero_grad(set_to_none=True)
-        total, metrics = loss_fn(state.model, batch, point_match_weight, collision_weight,
-                                 apply_fn)
-        total.backward()
-        state.optimizer.step()
-        _update_ema(state.ema, state.model, ema_decay)
+        with trace.span("train.step"):
+            state.optimizer.zero_grad(set_to_none=True)
+            total, metrics = loss_fn(state.model, batch, point_match_weight, collision_weight,
+                                     apply_fn)
+            total.backward()
+            state.optimizer.step()
+            _update_ema(state.ema, state.model, ema_decay)
         return state._replace(step=state.step + 1), {k: v.detach() for k, v in metrics.items()}
 
     return train_step

@@ -13,11 +13,13 @@ from typing import Tuple
 import torch
 
 from mpinets_torch.robot import franka
+from mpinets_torch.utils import trace
 
 
 def _limits(use_real_constraints: bool, like: torch.Tensor) -> torch.Tensor:
     table = franka.REAL_JOINT_LIMITS if use_real_constraints else franka.JOINT_LIMITS
-    return torch.as_tensor(table, dtype=like.dtype, device=like.device)
+    with trace.h2d_wait("joint_limits", like.device):
+        return torch.as_tensor(table, dtype=like.dtype, device=like.device)
 
 
 def normalize_franka_joints(

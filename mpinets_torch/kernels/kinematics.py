@@ -16,6 +16,7 @@ import torch
 
 from mpinets_torch.kernels.rotations import matrix_to_quat
 from mpinets_torch.robot import franka
+from mpinets_torch.utils.device import host_table
 
 
 def _rotz_apply(rot: torch.Tensor, c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -33,9 +34,10 @@ def _rotz_apply(rot: torch.Tensor, c: torch.Tensor, s: torch.Tensor) -> torch.Te
 @functools.lru_cache(maxsize=None)
 def franka_table(name: str, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """``franka.<name>`` as a tensor on a device, made once per (name,
-    dtype, device): a copy from the host to a card waits for the card, so
-    the kinematics make none per call."""
-    return torch.as_tensor(getattr(franka, name), dtype=dtype, device=device)
+    dtype, device) (:func:`~mpinets_torch.utils.device.host_table`, site
+    ``name.lower()``): a copy from the host to a card waits for the card,
+    so the callers make none per call. No caller writes it in place."""
+    return host_table(name.lower(), getattr(franka, name), dtype, device)
 
 
 def fk_frames(q: torch.Tensor, finger_open: float = franka.FINGER_OPEN):

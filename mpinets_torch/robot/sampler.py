@@ -4,7 +4,9 @@ Port of ``mpinets_tpu/robot/sampler.py`` (``bank_point_cloud``,
 ``sample_robot_points``, ``fixed_robot_points``, ``sample_end_effector``).
 Each bank's points are link-local and grouped by
 frame, so one batched FK gives the whole world-frame bank with one small
-product per frame; the 2048-point rollout resample is then a gather.
+product per frame; the 2048-point rollout resample is then a gather. The
+banks are copied to a device once per (bank, dtype, device) and reused, so a
+rollout step makes no copy from the host.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 
 from mpinets_torch.kernels import kinematics
 from mpinets_torch.robot import franka, point_banks
-from mpinets_torch.utils import trace
+from mpinets_torch.utils.device import host_table
 
 
 def _group_slices(frames: np.ndarray):
@@ -43,16 +45,25 @@ def _prepared_bank(bank_key: str, num_points: int, seed: int):
     return bank.points[order], groups
 
 
+@functools.lru_cache(maxsize=None)
+def _bank_table(bank_key: str, num_points: int, seed: int, dtype: torch.dtype,
+                device: torch.device) -> torch.Tensor:
+    """The frame-sorted bank of :func:`_prepared_bank` on a device, made once
+    per (bank, dtype, device) (:func:`host_table`). No caller writes it in
+    place."""
+    return host_table("point_bank", _prepared_bank(bank_key, num_points, seed)[0],
+                      dtype, device)
+
+
 def bank_point_cloud(
     q: torch.Tensor, bank_key: str = "full",
     num_bank_points: int = point_banks.DEFAULT_BANK_SIZE, seed: int = 0,
 ) -> torch.Tensor:
     """World-frame positions of every point of a bank ("full": the robot
     surface bank; "loss": the fixed loss bank). q: [..., 7] -> [..., P, 3]."""
-    points, groups = _prepared_bank(bank_key, num_bank_points, seed)
+    _, groups = _prepared_bank(bank_key, num_bank_points, seed)
     rots, transs = kinematics.fk_frames(q)
-    with trace.h2d_wait("point_bank", q.device):
-        pts = torch.as_tensor(points, dtype=q.dtype, device=q.device)
+    pts = _bank_table(bank_key, num_bank_points, seed, q.dtype, q.device)
     chunks = []
     for frame, a, b in groups:
         r = rots[..., frame, :, :]
@@ -120,6 +131,14 @@ def _gripper_bank_eff_local(num_points: int, seed: int) -> np.ndarray:
     return out.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _gripper_table(num_points: int, seed: int, dtype: torch.dtype,
+                   device: torch.device) -> torch.Tensor:
+    """:func:`_gripper_bank_eff_local` on a device, made once per (bank,
+    dtype, device) (:func:`host_table`). No caller writes it in place."""
+    return host_table("gripper_bank", _gripper_bank_eff_local(num_points, seed), dtype, device)
+
+
 def sample_end_effector(
     eff_rot: torch.Tensor, eff_trans: torch.Tensor, num_points: int = 128,
     seed: int = 2,
@@ -131,9 +150,5 @@ def sample_end_effector(
     eff_rot: [..., 3, 3]; eff_trans: [..., 3] (right_gripper frame pose)
     -> [..., num_points, 3]
     """
-    with trace.h2d_wait("gripper_bank", eff_trans.device):
-        local = torch.as_tensor(
-            _gripper_bank_eff_local(num_points, seed),
-            dtype=eff_trans.dtype, device=eff_trans.device,
-        )
+    local = _gripper_table(num_points, seed, eff_trans.dtype, eff_trans.device)
     return torch.einsum("...ij,pj->...pi", eff_rot, local) + eff_trans[..., None, :]

@@ -12,14 +12,14 @@ from typing import Tuple
 
 import torch
 
-from mpinets_torch.robot import franka
-from mpinets_torch.utils import trace
+from mpinets_torch.kernels import kinematics
 
 
 def _limits(use_real_constraints: bool, like: torch.Tensor) -> torch.Tensor:
-    table = franka.REAL_JOINT_LIMITS if use_real_constraints else franka.JOINT_LIMITS
-    with trace.h2d_wait("joint_limits", like.device):
-        return torch.as_tensor(table, dtype=like.dtype, device=like.device)
+    """The [7, 2] limit table in ``like``'s dtype on its device, made once
+    per (table, dtype, device) (:func:`kinematics.franka_table`)."""
+    table = "REAL_JOINT_LIMITS" if use_real_constraints else "JOINT_LIMITS"
+    return kinematics.franka_table(table, like.dtype, like.device)
 
 
 def normalize_franka_joints(

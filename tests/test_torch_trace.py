@@ -5,8 +5,10 @@ same bit for bit; under ``torch.profiler`` a CPU rollout records
 ``rollout.policy`` and ``rollout.env`` once a step with ``policy.tail``
 inside the policy's span, a train step ``train.batch`` and ``train.step``,
 and no ``wait.*`` (on the CPU nothing waits). The ``cuda`` tests hold, on
-the card, the waits a rollout step makes and that every device operation of
-a step lies under exactly one of its two spans. The file imports no JAX:
+the card, that a warm rollout step makes no copy from the host and no wait
+(its tables are on the card since the warm-up), that every device operation
+of a step lies under exactly one of its two spans, and that a warm rollout
+never synchronises with the card. The file imports no JAX:
 
     python -m pytest tests/test_torch_trace.py -m cuda --noconftest -p no:cacheprovider
 """
@@ -28,9 +30,10 @@ NPOINTS = (16, 8)
 SIZES = PointCloudSizes(64, 48, 16)
 STEPS = 3
 SPANS = {"rollout.policy", "rollout.env", "policy.tail", "train.batch", "train.step"}
-#: The copies from the host a rollout step makes on a card: the unnormalize's
-#: joint limits and the resample's point bank.
-STEP_WAITS = ["wait.h2d.joint_limits", "wait.h2d.point_bank"]
+#: The copies from the host a warm rollout step makes on a card: none. The
+#: joint limits and the point banks are copied once per (table, dtype,
+#: device), by the warm-up, and a copy in a step would drain the card's queue.
+STEP_WAITS = []
 
 
 def small_rollout(device="cpu", npoints=NPOINTS, sizes=SIZES, batch=2, dtype=torch.float32):
@@ -134,11 +137,15 @@ def within(t, e):
     return e.time_range.start <= t <= e.time_range.end
 
 
+def card_rollout(card):
+    return small_rollout(card, npoints=(512, 128), sizes=PointCloudSizes(), batch=8,
+                         dtype=torch.bfloat16)
+
+
 @pytest.mark.cuda
-def test_card_rollout_waits_twice_a_step_and_each_op_lies_under_one_span(card):
-    run = small_rollout(card, npoints=(512, 128), sizes=PointCloudSizes(), batch=8,
-                        dtype=torch.bfloat16)
-    run()                                                   # builds the kernels
+def test_card_rollout_makes_no_wait_and_each_op_lies_under_one_span(card):
+    run = card_rollout(card)
+    run()                                     # builds the kernels, copies the tables
     _, events = profiled(run, (ProfilerActivity.CPU, ProfilerActivity.CUDA))
     host = spans_of(events)
     steps = sorted((e for e in host if e.name in ("rollout.policy", "rollout.env")),
@@ -146,13 +153,11 @@ def test_card_rollout_waits_twice_a_step_and_each_op_lies_under_one_span(card):
     assert len(steps) == 2 * STEPS
     ops = launches(events)
     for env in (e for e in steps if e.name == "rollout.env"):
-        inside = sorted((e for e in host if e.name.startswith("wait.")
-                         and within(e.time_range.start, env)),
-                        key=lambda e: e.time_range.start)
-        assert [e.name for e in inside] == STEP_WAITS
-        for wait in inside:
-            copies = [name for t, name in ops if within(t, wait)]
-            assert copies and all("HtoD" in k for k in copies), (wait.name, copies)
+        inside = [e.name for e in host if e.name.startswith("wait.")
+                  and within(e.time_range.start, env)]
+        assert inside == STEP_WAITS
+        copies = [name for t, name in ops if within(t, env) and "HtoD" in name]
+        assert copies == [], copies
     first, last = steps[0].time_range.start, steps[-1].time_range.end
     by_span = {"rollout.policy": set(), "rollout.env": set()}
     for t, name in ops:
@@ -164,3 +169,17 @@ def test_card_rollout_waits_twice_a_step_and_each_op_lies_under_one_span(card):
     for name in ("sa_kernel_mma", "sa_select_kernel", "fps_kernel"):
         assert name in policy, sorted(by_span["rollout.policy"])
     assert not [k for k in by_span["rollout.env"] if "sa_" in k or "fps" in k]
+
+
+@pytest.mark.cuda
+def test_card_rollout_never_synchronises(card):
+    run = card_rollout(card)
+    run()
+    torch.cuda.synchronize(card)
+    torch.cuda.set_sync_debug_mode("error")   # a synchronising call raises
+    try:
+        result = run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize(card)
+    assert result.trajectories.shape == (8, STEPS + 1, 7)

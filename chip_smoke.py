@@ -364,7 +364,7 @@ def kernel_resources(log_text):
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
         if m:
             t = re.search(r"([a-z][a-z_]*?_kernel(?:_mma)?)"
-                          r"(?:I(?:Li(\d+)E)?Lb([01])ELb([01])ELb([01])E|ILi(\d+)E)?",
+                          r"(?:I(?:Li(\d+)E)?Lb([01])ELb([01])ELb([01])E(?:Lb([01])E)?|ILi(\d+)E)?",
                           m.group(1))
             fps = re.search(r"fps_kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])E", m.group(1))
             roll = re.search(r"probe_roll_kernelILi(\d+)ELb([01])ELb([01])E", m.group(1))
@@ -374,9 +374,10 @@ def kernel_resources(log_text):
                 f"probe_roll_kernel<{roll.group(1)}, ragged={roll.group(2)}, "
                 f"ring={roll.group(3)}>") if roll else full if t is None else t.group(1) + (
                 f"<{f'tr={t.group(2)}, ' if t.group(2) else ''}raw={t.group(3)}, "
-                f"point0={t.group(4)}, fast={t.group(5)}>"
+                f"point0={t.group(4)}, fast={t.group(5)}"
+                f"{', wgmma=1' if t.group(6) == '1' else ''}>"
                 if t.group(3) is not None
-                else f"<{t.group(6)}>" if t.group(6) is not None
+                else f"<{t.group(7)}>" if t.group(7) is not None
                 else "<bf16>" if "bfloat16" in full else "<f32>" if "IfE" in full else "")
             out.setdefault(name, {})
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -407,8 +408,9 @@ def sass_text(lib):
 
 
 def sass_hmma(lib):
-    """HMMA instructions per kernel in a built library's SASS, or None where
-    the toolkit has no cuobjdump."""
+    """Tensor-core instructions per kernel in a built library's SASS, HMMA
+    (mma.sync) and HGMMA (wgmma): {kernel: (HMMA, HGMMA)}, or None where the
+    toolkit has no cuobjdump."""
     import re
 
     sass = sass_text(lib)
@@ -419,10 +421,11 @@ def sass_hmma(lib):
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            counts[name] = 0
-        elif name and re.search(r"\bHMMA\b", line):
-            counts[name] += 1
-    return counts
+            counts[name] = [0, 0]
+        elif name:
+            counts[name][0] += bool(re.search(r"\bHMMA\b", line))
+            counts[name][1] += bool(re.search(r"\bHGMMA\b", line))
+    return {k: tuple(v) for k, v in counts.items()}
 
 
 def sass_loops(lib, pattern):
@@ -2218,6 +2221,7 @@ def main() -> int:
     # instantiation: no spill
     variants = ((0, 0, 0), (0, 0, 1), (1, 0, 0), (0, 1, 0))
     for kname in (*(f"sa_kernel_mma<raw={r}, point0={p0}, fast={f}>" for r, p0, f in variants),
+                  "sa_kernel_mma<raw=0, point0=0, fast=0, wgmma=1>",
                   *(f"sa_kernel<tr={tr}, raw={r}, point0={p0}, fast={f}>"
                     for tr in (4, 8) for r, p0, f in variants),
                   *(f"sa_select_kernel<{cpw}>" for cpw in (1, 2, 4)),
@@ -2258,10 +2262,14 @@ def main() -> int:
     if hmma is None:
         log("cuobjdump not found: HMMA count skipped")
     else:
-        log(f"HMMA instructions in the SASS of sa.cu, per kernel: {hmma}")
+        log(f"(HMMA, HGMMA) instructions in the SASS of sa.cu, per kernel: {hmma}")
+        # four mma.sync instantiations, and the wgmma one (template flag 4 set)
         mma_kernels = {k: v for k, v in hmma.items() if "sa_kernel_mma" in k}
-        if len(mma_kernels) != 4 or not all(mma_kernels.values()):
-            raise AssertionError(f"sa_kernel_mma instantiations without HMMA: {hmma}")
+        wg = {k: v for k, v in mma_kernels.items() if "Lb0ELb0ELb0ELb1E" in k}
+        if (len(mma_kernels) != 5 or len(wg) != 1 or not all(v[1] for v in wg.values())
+                or not all(v[0] for k, v in mma_kernels.items() if k not in wg)):
+            raise AssertionError(f"sa_kernel_mma instantiations without tensor-core "
+                                 f"instructions: {hmma}")
 
     gen = torch.Generator().manual_seed(SEED)
     model = MotionPolicyNetwork(compute_dtype=bf16, device="cpu", generator=gen).to(dev).eval()
@@ -2436,8 +2444,9 @@ def main() -> int:
         log(f"{label}: impl v5 (centroids_in_cloud) equals v8 bit for bit")
         check_sa(f"sa_v3 {label}", args, stage, bf16, in_cloud=False)
 
-    phase("SA kernel, neighbour counts across the 16-row tiles (SA0, SA1 widths) and the "
-          "CUDA-core kernel's 64- and 128-row tiles (f32); bit-equal across centroids per block")
+    phase("SA kernel, neighbour counts across the 16-row tiles (SA0, SA1 widths), the wgmma "
+          "kernel's 64-row tiles and work items (SA1, bf16) and the CUDA-core kernel's 64- and "
+          "128-row tiles (f32); bit-equal across centroids per block")
     whole = lambda xs, cs: ops.chunk_window(xs, cs, -(-xs.shape[1] // 128))
     variants = (("sa", {}), ("sa_raw", dict(raw=True)), ("sa_v3", dict(in_cloud=False)),
                 ("sa_fast", dict(chunks_fn=whole)))
@@ -2448,9 +2457,10 @@ def main() -> int:
             for kernel, kw in variants:
                 check_sa(f"{kernel} {label} count spread ({len(counts)} centroids)",
                          spread[stage], stage, dtype, timed=False, **kw)
-        for kernel, kw in variants:
-            check_sa(f"{kernel} {label} row-tile spread ({len(SPREAD_TILES)} centroids)",
-                     tile_spread[stage], stage, f32, timed=False, **kw)
+        for dtype in (f32, bf16):
+            for kernel, kw in variants:
+                check_sa(f"{kernel} {label} row-tile spread ({len(SPREAD_TILES)} centroids)",
+                         tile_spread[stage], stage, dtype, timed=False, **kw)
 
     def cpb_equal(label, args, stage, variants, cpbs, timed, dtype=bf16):
         """The MLP kernel of ``dtype`` (bf16: tensor cores; f32: CUDA cores)
@@ -2486,6 +2496,8 @@ def main() -> int:
         cpb_equal(f"{label} count spread", spread[stage], stage, variants, cpbs, False)
         cpb_equal(f"{label} row-tile spread", tile_spread[stage], stage, variants, cpbs, False,
                   f32)
+    # the wgmma kernel (SA1's exact stage) in work items of 8 and 16 centroids
+    cpb_equal("SA1 row-tile spread", tile_spread[1], 1, (("sa", {}),), (8, 16), False)
     cpb_equal(f"SA0 B={B} assembled cloud", sa0_args, 0,
               (("sa", {}), ("sa_fast", dict(chunks_fn=fast_chunks))), (8, 16, 32), True)
     for dtype in (f32, bf16):
@@ -2540,11 +2552,17 @@ def main() -> int:
         if not err <= FWD_BF16_TOL * max(scale, 1e-3):
             raise AssertionError(f"bf16 forward (W={fast}, bf16_cloud={bf16_cloud}) error "
                                  f"{err} > tol")
+    # v3 and v8 compute one function on FPS centroids (no centroid without
+    # neighbours), but SA1's v8 stage runs the wgmma kernel and v3's the
+    # mma.sync one, whose sums round apart: within the bf16 forward's gate
     kern_v3 = fused.fused_policy_apply(model, pc, q_norm, compute_dtype=bf16, sa_impl="v3")
     kern_v8 = fused.fused_policy_apply(model, pc, q_norm, compute_dtype=bf16)
-    if not torch.equal(kern_v3, kern_v8):
-        raise AssertionError("bf16 forward: sa_impl v3 differs from v8 on FPS centroids")
-    log("bf16 kernel path, sa_impl v3 equals v8 on FPS centroids")
+    err = (kern_v3 - kern_v8).abs().max().item()
+    scale = kern_v8.abs().max().item()
+    if not err <= FWD_BF16_TOL * max(scale, 1e-3):
+        raise AssertionError(f"bf16 forward: sa_impl v3 differs from v8 on FPS centroids by {err}")
+    log(f"bf16 kernel path, sa_impl v3 against v8 on FPS centroids: max |dq gap| {err:.3e}, "
+        f"max |dq| {scale:.3f}")
     torch.cuda.synchronize()
 
     phase(f"fused train step: kernels vs plain, B={GRAD_B}, full widths")
@@ -2682,9 +2700,15 @@ def main() -> int:
         if sa_impl == "v3":
             torch.cuda.synchronize()
             count_path("v3 rollout", ("fps", "sa_select", "sa_v3"))
-    if not torch.equal(finals["v3"], finals["v8"]):
-        raise AssertionError("v3 rollout differs from the v8 rollout on FPS centroids")
-    log("v3 rollout: final configurations equal the v8 rollout's")
+    # each step's v3 policy is within the bf16 forward's gate of v8's (above),
+    # so the final configurations within that share of the motion, a step each
+    gap = (finals["v3"] - finals["v8"]).abs().max().item()
+    motion = (finals["v8"] - problem.q0).abs().max().item()
+    if not gap <= FWD_BF16_TOL * V3_STEPS * motion:
+        raise AssertionError(f"v3 rollout differs from the v8 rollout on FPS centroids by {gap} "
+                             f"(motion {motion})")
+    log(f"v3 rollout: final configurations within {gap:.3e} of the v8 rollout's "
+        f"(max motion {motion:.3e})")
 
     phase(f"trainer: synthetic data, reference widths, bf16, B={TRAIN_BATCHES}")
     train_rates = {}

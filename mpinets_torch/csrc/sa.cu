@@ -61,8 +61,8 @@
 // a warp reads its centroids' selections from idx and count; on the fast
 // path it scans their windows itself (the same ballot compaction over the
 // cloud in global memory). The raw block is a v8 output and so comes only
-// with in_cloud = 1 on the exact path. mpn_sa picks one of eight
-// instantiations.
+// with in_cloud = 1 on the exact path. mpn_sa picks one of nine
+// instantiations: eight of those flags, and sa_kernel_mma's wgmma one.
 //
 // sa_kernel_mma (bf16): the MLP runs on the tensor cores, mma.sync
 // m16n8k16 with bf16 operands and f32 accumulation, as the TPU kernel runs
@@ -117,9 +117,59 @@
 //    209 KB at 8, 221 KB at 16 (32 does not fit): __launch_bounds__(256, 2)
 //    keeps two blocks per SM at SA0, one at SA1. A stage whose weights and
 //    tiles do not fit at cpb 8 takes the CUDA-core kernel.
-// Left for later: the window choice inside the kernel, a persistent loop
-// that stages the weights once per SM, and wgmma, whose 64-row tiles the
-// packed rows now make possible.
+// Since the wgmma instantiation, this kernel runs SA0, the raw block (the
+// train forward), the off-cloud and the fast stages, and SA1 where the
+// wgmma one does not fit. Left for later: the window choice inside the
+// kernel, and those stages on wgmma.
+//
+// sa_kernel_mma<false, false, false, true> (bf16, the wgmma MLP): exact,
+// in-cloud stages without the raw block whose layers are wider than 64 (SA1:
+// 67 -> 128 -> 128 -> 256, about 61 rows a centroid), on Hopper's
+// warpgroup product. What bounds it: the MLP's FLOP over the valid rows
+// (4.7e11 at B=512, 0.46 ms at 989 TFLOP/s), where the mma.sync kernel took
+// 5.7 ms: each 16-row tile of a warp read all three layers' weights through
+// ldmatrix, and each of its 4,096-8,192 blocks copied them (119 KB) again.
+// Design:
+//  * Persistent: min(ceil(items / 2), SMs) blocks of two warpgroups. A block
+//    stages W1^T, W2^T and W3^T (bf16, 116 KB at SA1), the biases and W1's
+//    xyz rows in shared memory once, in wgmma's canonical K-major layout
+//    without swizzle (core_offset: any width a multiple of 16), zero past
+//    each layer up to the products' 128 columns (W3: 256). Each warpgroup
+//    walks its own work items, (batch row, cpb centroids): item blockIdx.x *
+//    2 + warpgroup, then every 2 * gridDim.x; no block barrier after the
+//    weights.
+//  * An item's counts give its packed rows as the mma.sync kernel packs them
+//    (centroid g owns max(min(count, 128), 1) rows from the exclusive prefix)
+//    and a row map (centroid, cloud point) from idx; 64-row tiles (wgmma's
+//    m) run over them, one at a time per warpgroup. Two threads a row copy a
+//    tile's raw rows, f32 as read, into staging rows by cp.async, one tile
+//    ahead: tile t + 1's copies fly through tile t's three layers. At a
+//    tile's start the warpgroup rounds them to bf16 into its A tile (zero
+//    rows for a count of 0 and past the item's rows). Raw element k sits at
+//    column k + 1 of both (W1's rows shifted to match), so the features'
+//    copies are 16 bytes and the rounding reads two aligned 16-byte words a
+//    chunk of 8.
+//  * Layer 1 reads A (the raw rows) and W1^T from shared memory; its
+//    epilogue in registers adds the bias and the recentring term of each
+//    row's own centroid, takes the ReLU and rounds to bf16, and the C
+//    fragments of 8-column groups 2j, 2j + 1 are the A fragment of the next
+//    product's k step j (as FlashAttention-3 feeds P to its second product),
+//    so h1 and h2 never touch shared memory. Layer 3's two 128-column
+//    products are issued together, and the first is pooled while the second
+//    runs: per warp, the max over its 16 rows by centroid (pool_half: a
+//    butterfly over the 8 row groups, then the bias and ReLU, which commute
+//    with the max, and one shared atomicMax a lane and column) into the
+//    warpgroup's pmax; an item's last tile writes its centroids' rows out. An
+//    output row depends on its own A row alone, summed in the same k order
+//    in any tile or item, so the features are bit-equal whatever the grid
+//    or cpb.
+//  * Shared memory at SA1: 200 KB at cpb 8 (the plan's), 224 KB at 16 (32
+//    does not fit), one block a SM; __launch_bounds__(256, 1) leaves up to
+//    255 registers a thread (ptxas takes 255, no spill: 64 + 64
+//    accumulators of layer 3's products and 32 A-fragment registers). With
+//    two warpgroups a SM the layers' epilogues, the pool, the rounding and
+//    the gather run mostly one after another within a warpgroup; at B=512
+//    it holds about a quarter of the bf16 peak.
 //
 // sa_kernel<kTr> (f32; and bf16 beyond the tensor-core kernel's shared
 // memory): the MLP on the CUDA cores in f32 FFMA (67 TFLOP/s peak; no TF32,
@@ -233,8 +283,9 @@ struct SaArgs {
   int n, s, c, kp, c1, c2, c3, window, bf16;
   int k1p, n1p, n2p, n3p;  // 3 + c, c1, c2, c3 rounded up to 16
   float r2;
-  int cpb;                 // centroids per block: 8, 16 or 32
+  int cpb;                 // centroids per block (wgmma: per work item): 8, 16 or 32
   int rows;                // CUDA-core kernel: rows per tile (32 or 128)
+  int b;                   // batch rows (the wgmma kernel's items: b * ceil(s / cpb))
 };
 
 __device__ __forceinline__ float round_bf16(float x) {
@@ -940,6 +991,30 @@ __device__ __forceinline__ float recentre(const float* w1c, int ldc, int j, floa
   return w1c[j] * cx + w1c[ldc + j] * cy + w1c[2 * ldc + j] * cz;
 }
 
+// The TileRows of a lane from its warp's 16 rows' centroids map_g (-1 past
+// the block's rows) and the centroids' coordinates cent [cpb][3].
+__device__ __forceinline__ TileRows tile_rows(const int* map_g, const float* cent, int lane) {
+  TileRows tr;
+  const int lo = lane >> 2, hi = lo + 8;
+  tr.g_lo = map_g[lo];
+  tr.g_hi = map_g[hi];
+  tr.g_all = map_g[0] == map_g[kTile - 1] ? map_g[0] : -1;
+  tr.head_lo = tr.g_lo >= 0 && (lo == 0 || map_g[lo - 1] != tr.g_lo);
+  tr.head_hi = tr.g_hi >= 0 && (hi == 8 || map_g[hi - 1] != tr.g_hi);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const int d = 1 << i;
+    tr.join_lo[i] = lo + d < 8 && tr.g_lo >= 0 && map_g[lo + d] == tr.g_lo ? 1.f : 0.f;
+    tr.join_hi[i] = hi + d < kTile && tr.g_hi >= 0 && map_g[hi + d] == tr.g_hi ? 1.f : 0.f;
+  }
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    tr.lo[d] = tr.g_lo >= 0 ? cent[3 * tr.g_lo + d] : 0.f;
+    tr.hi[d] = tr.g_hi >= 0 ? cent[3 * tr.g_hi + d] : 0.f;
+  }
+  return tr;
+}
+
 // One dense layer of the tensor-core MLP on one warp's 16-row tile:
 // A [16, k] bf16 (row stride lda), W^T [n, k] bf16 (row stride k + kPad)
 // and the bias [n] f32 (zero past nreal, the layer's real output width), all
@@ -1056,9 +1131,10 @@ size_t mma_smem_bytes(int k1p, int n1p, int n2p, int n3p, int c3, int cpb) {
   return 2 * bf16s + 4 * words;
 }
 
+// The tensor-core MLP on mma.sync: sa_kernel_mma's body but for the wgmma
+// instantiation.
 template <bool kRaw, bool kPoint0, bool kFast>
-__global__ void __launch_bounds__(kThreads, 2) sa_kernel_mma(SaArgs a) {
-  extern __shared__ float4 smem4[];
+__device__ __forceinline__ void mma_sync_mlp(const SaArgs& a, float4* smem4) {
   const int cpb = a.cpb;
   const int cpw = cpb / kWarps;              // centroids a warp selects for
   const int lda = max(a.k1p, a.n2p) + kPad;  // tile buffer A: raw rows, then h2
@@ -1162,24 +1238,7 @@ __global__ void __launch_bounds__(kThreads, 2) sa_kernel_mma(SaArgs a) {
       }
     }
     __syncwarp();
-    TileRows tr;
-    const int lo = lane >> 2, hi = lo + 8;
-    tr.g_lo = map_g[lo];
-    tr.g_hi = map_g[hi];
-    tr.g_all = map_g[0] == map_g[kTile - 1] ? map_g[0] : -1;
-    tr.head_lo = tr.g_lo >= 0 && (lo == 0 || map_g[lo - 1] != tr.g_lo);
-    tr.head_hi = tr.g_hi >= 0 && (hi == 8 || map_g[hi - 1] != tr.g_hi);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const int d = 1 << i;
-      tr.join_lo[i] = lo + d < 8 && tr.g_lo >= 0 && map_g[lo + d] == tr.g_lo ? 1.f : 0.f;
-      tr.join_hi[i] = hi + d < kTile && tr.g_hi >= 0 && map_g[hi + d] == tr.g_hi ? 1.f : 0.f;
-    }
-#pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      tr.lo[d] = tr.g_lo >= 0 ? cent[3 * tr.g_lo + d] : 0.f;
-      tr.hi[d] = tr.g_hi >= 0 ? cent[3 * tr.g_hi + d] : 0.f;
-    }
+    const TileRows tr = tile_rows(map_g, cent, lane);
     // raw rows in bf16, zero past each centroid's count and past 3 + c;
     // kGather loads issued before their stores, so their latencies overlap.
     // Lane steps through the [16, k1p] tile 32 elements at a time.
@@ -1253,6 +1312,545 @@ __global__ void __launch_bounds__(kThreads, 2) sa_kernel_mma(SaArgs a) {
 }
 
 // ---------------------------------------------------------------------------
+// Tensor-core MLP on wgmma (bf16; exact in-cloud stages wider than 64)
+// ---------------------------------------------------------------------------
+
+constexpr int kWgs = kThreads / 128;  // warpgroups per block of the wgmma kernel
+constexpr int kWgThreads = 128;
+constexpr int kWgRows = 64;           // wgmma's m: rows per tile
+constexpr int kWgN = 128;             // wgmma's n: output columns per product
+
+// A [rows][k] bf16 matrix in shared memory in wgmma's canonical K-major
+// layout without swizzle: 8x8 core matrices of 128 contiguous bytes (8 rows
+// of 16 bytes), core (r / 8, k / 8) at (k / 8) * rows * 16 + (r / 8) * 128
+// bytes. The leading byte offset (the next core along k) is rows * 16, the
+// stride byte offset (the next 8 rows) 128, for any k a multiple of 8; a
+// warp's 16-byte stores of one k group over 32 rows are 512 contiguous bytes.
+__host__ __device__ constexpr uint32_t core_offset(int r, int k, int rows) {
+  return (uint32_t)((k >> 3) * rows * 16 + (r >> 3) * 128 + (r & 7) * 16 + (k & 7) * 2);
+}
+
+// wgmma's shared-memory descriptor of such a matrix of `rows` rows from the
+// shared byte address addr: bits 0-13 addr / 16, 16-29 the leading byte
+// offset / 16, 32-45 the stride byte offset / 16, layout type 0 (no swizzle).
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, int rows) {
+  return (uint64_t)((addr >> 4) & 0x3FFFu) | (uint64_t)((rows * 16) >> 4) << 16 |
+         (uint64_t)(128 >> 4) << 32;
+}
+
+// d += a b on a 64 x 128 tile, m64n128k16, bf16 operands and f32
+// accumulators (scale_d 0: d = a b, d's values unread); the PTX of CUTLASS's
+// cute/arch/mma_sm90_gmma.hpp, SM90_64x128x16_F32BF16BF16_SS (A and B by
+// descriptor) and _RS (A in registers: a0-a3 as mma.sync's m16n8k16 A
+// fragment of the warp's 16 rows).
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Until at most kPending committed groups of wgmma are in flight.
+template <int kPending>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Registers that an in-flight wgmma reads or writes stay put until its wait
+// (CUTLASS's warpgroup_fence_operand).
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// Shared memory written by threads (stores, cp.async), then read by wgmma:
+// the writes made visible to the async proxy, before the barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The 128 threads of warpgroup wg (named barrier 1 + wg; 0 is __syncthreads).
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(kWgThreads) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__host__ __device__ inline uint32_t align128(uint32_t x) { return (x + 127u) & ~127u; }
+
+// A gathered raw row's f32 staging row, and its A-tile row: raw element k
+// at column k + 1 of both (column 0 zero in the A tile, W1's rows shifted to
+// match), so the features start 16 bytes in and an 8-column chunk of the A
+// tile is two aligned 16-byte loads of its staging row; wg_k1 is the A
+// tile's width, 1 + 3 + c rounded up to 16 (80 at SA1).
+__host__ __device__ inline int stage_cols(int kin) { return (kin + 4) / 4 * 4; }
+__host__ __device__ inline int wg_k1(int kin) { return (kin + 16) / 16 * 16; }
+
+// Layer 3's output rows in shared memory: one product of kWgN or two.
+__host__ __device__ inline int wg_n3(int n3p) { return n3p > kWgN ? 2 * kWgN : kWgN; }
+
+// The wgmma kernel's dynamic shared memory, in bytes from its start: the
+// block's weights (W^T [kWgN][wg_k1], [kWgN][kWgN], [wg_n3][kWgN] in the
+// canonical layout, zero past each layer), biases and W1's xyz rows, then
+// each warpgroup's own area (from wg0, per_wg bytes apart): its A tile, the
+// staging rows, the max-pool of its work item's centroids, the item's row
+// map, its centroids, counts and first packed rows, and two tiles' row maps.
+struct WgLayout {
+  uint32_t w1, w2, w3, bias, w1c, wg0, per_wg, total;
+  uint32_t atile, stage, pmax, rowmap, cent, cnt, off, mapg, mapp;
+};
+
+__host__ __device__ inline WgLayout wg_layout(int kin, int n3p, int c3, int cpb) {
+  WgLayout l;
+  l.w1 = 0;
+  l.w2 = align128(l.w1 + 2u * kWgN * wg_k1(kin));
+  l.w3 = align128(l.w2 + 2u * kWgN * kWgN);
+  l.bias = align128(l.w3 + 2u * wg_n3(n3p) * kWgN);
+  l.w1c = align128(l.bias + 4u * (2 * kWgN + wg_n3(n3p)));
+  l.wg0 = align128(l.w1c + 4u * 3 * kWgN);
+  l.atile = 0;
+  l.stage = align128(l.atile + 2u * kWgRows * wg_k1(kin));
+  l.pmax = align128(l.stage + 4u * kWgRows * stage_cols(kin));
+  l.rowmap = align128(l.pmax + 4u * cpb * c3);
+  l.cent = align128(l.rowmap + 4u * cpb * kNs);
+  l.cnt = align128(l.cent + 4u * 3 * cpb);
+  l.off = align128(l.cnt + 4u * cpb);
+  l.mapg = align128(l.off + 4u * cpb);
+  l.mapp = align128(l.mapg + 4u * 2 * kWgRows);
+  l.per_wg = align128(l.mapp + 4u * 2 * kWgRows);
+  l.total = l.wg0 + kWgs * l.per_wg;
+  return l;
+}
+
+// W^T [rows_src, k_src] bf16 (row-major, zero-padded to multiples of 16 by
+// prepare_sa_weights) into shared memory as [rows][k], blocks of kWgN rows
+// each in the canonical layout ([kWgN][k]); rows and k past the source are
+// zero. cp.async by the whole block; the caller waits.
+__device__ __forceinline__ void stage_wg_weights(unsigned char* dst, const bf16_t* src,
+                                                 int rows_src, int k_src, int rows, int k) {
+  const int per_row = k / 8;
+  for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
+    const int r = i / per_row, q = i - r * per_row;
+    unsigned char* d = dst + (size_t)(r / kWgN) * kWgN * k * 2 + core_offset(r % kWgN, 8 * q, kWgN);
+    if (r < rows_src && 8 * q < k_src) {
+      cp_async16(d, src + (size_t)r * k_src + 8 * q);
+    } else {
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// W1^T [n1p, k1p] bf16 into shared memory as [kWgN][wg_k1] in the canonical
+// layout with its columns one to the right (column k + 1 weighs raw element
+// k); zero elsewhere. 2-byte copies by the whole block, once.
+__device__ __forceinline__ void stage_w1_shifted(unsigned char* dst, const bf16_t* src, int n1p,
+                                                 int k1p, int kin) {
+  const int k1 = wg_k1(kin);
+  for (int i = threadIdx.x; i < kWgN * k1; i += kThreads) {
+    const int r = i / k1, k = i - r * k1;
+    const bf16_t zero = __float2bfloat16_rn(0.f);
+    *reinterpret_cast<bf16_t*>(dst + core_offset(r, k, kWgN)) =
+        r < n1p && k >= 1 && k <= kin ? src[(size_t)r * k1p + k - 1] : zero;
+  }
+}
+
+// One level of pool_rows' butterfly: lanes kHalf * 2 apart trade half of m
+// (the lane with that bit keeps the upper half), each keeping the max.
+template <int kHalf>
+__device__ __forceinline__ void trade_half(float (&m)[16], int lane) {
+  const bool up = lane & (2 * kHalf);
+#pragma unroll
+  for (int k = 0; k < kHalf; ++k) {
+    const float send = up ? m[k] : m[k + kHalf];
+    const float keep = up ? m[k + kHalf] : m[k];
+    m[k] = fmaxf(keep, __shfl_xor_sync(0xffffffffu, send, 2 * kHalf));
+  }
+}
+
+// The max over the warp's 16 rows of centroid g (lo, hi: whether the
+// thread's rows lane / 4 and lane / 4 + 8 are g's) of one half (64 columns)
+// of a product, then its bias and ReLU, into g's row of pmax. m[2 jj + e]
+// starts as column 8 (8 half + jj) + 2 q + e of the thread's rows (a row not
+// g's as -inf); a butterfly over the 8 row groups (lanes 16, 8 and 4 apart)
+// in which a lane keeps half of m and trades the other half, 8 + 4 + 2
+// independent shuffles, leaves lane l with the maxima of columns 8 (8 half +
+// l / 4) + 2 q + t, t = 0, 1; one atomicMax each, 32 lanes on distinct
+// columns. The bias and ReLU come after the max: both are monotone, so
+// relu(max(x) + b) is max(relu(x + b)) bit for bit.
+__device__ __forceinline__ void pool_half(const float (&acc)[64], int half, bool lo, bool hi,
+                                          const float* bias, int n0, int g, int* pmax, int nreal,
+                                          int lane) {
+  const float none = -INFINITY;
+  float m[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int a = 32 * half + 4 * (i >> 1) + (i & 1);  // row lo's accumulator; row hi's a + 2
+    m[i] = fmaxf(lo ? acc[a] : none, hi ? acc[a + 2] : none);
+  }
+  trade_half<8>(m, lane);
+  trade_half<4>(m, lane);
+  trade_half<2>(m, lane);
+  const int c = 8 * (8 * half + (lane >> 2)) + 2 * (lane & 3);
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    if (n0 + c + t < nreal) {
+      atomicMax(pmax + g * nreal + n0 + c + t, __float_as_int(fmaxf(m[t] + bias[c + t], 0.f)));
+    }
+  }
+}
+
+// Layer 3 on one product of the warp's 16 rows (kWgN columns from n0): the
+// bias, the ReLU and the max by centroid into pmax ([cpb][nreal], bits of
+// non-negative floats), pool_half by pool_half: once where all 16 rows are
+// centroid tr.g_all's (most warps at SA1), else once for each centroid of
+// the rows, g_first .. g_last (packed rows take consecutive centroids), with
+// the thread's rows of other centroids, or past the item's, masked.
+__device__ __forceinline__ void pool_rows(const float (&acc)[64], const float* bias, int n0,
+                                          const TileRows& tr, int g_first, int g_last,
+                                          int* pmax, int nreal, int lane) {
+  if (tr.g_all >= 0) {  // warp-uniform
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      pool_half(acc, half, true, true, bias, n0, tr.g_all, pmax, nreal, lane);
+    }
+    return;
+  }
+  for (int g = max(g_first, 0); g <= g_last; ++g) {  // warp-uniform
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      pool_half(acc, half, tr.g_lo == g, tr.g_hi == g, bias, n0, g, pmax, nreal, lane);
+    }
+  }
+}
+
+// The MLP of the wgmma instantiation (see the header): a persistent block of
+// kWgs warpgroups, each walking its own work items of cpb centroids of one
+// batch row, in 64-row tiles over their packed rows.
+__device__ __forceinline__ void wgmma_mlp(const SaArgs& a, unsigned char* sm) {
+  const int kin = 3 + a.c, k1 = wg_k1(kin), cpb = a.cpb;
+  const int n3 = wg_n3(a.n3p);
+  const int ldst = stage_cols(kin);
+  const WgLayout lay = wg_layout(kin, a.n3p, a.c3, cpb);
+  const int tid = threadIdx.x;
+
+  // ---- the block: weights, biases and W1's xyz rows, once ---------------
+  stage_w1_shifted(sm + lay.w1, a.w1t, a.n1p, a.k1p, kin);
+  stage_wg_weights(sm + lay.w2, a.w2t, a.n2p, a.n1p, kWgN, kWgN);
+  stage_wg_weights(sm + lay.w3, a.w3t, a.n3p, a.n2p, n3, kWgN);
+  float* bias = reinterpret_cast<float*>(sm + lay.bias);  // b1 [kWgN], b2 [kWgN], b3 [n3]
+  float* w1c = reinterpret_cast<float*>(sm + lay.w1c);    // W1 rows 0-2 [3][kWgN], f32
+  for (int j = tid; j < 2 * kWgN + n3; j += kThreads) {
+    const int j2 = j - kWgN, j3 = j2 - kWgN;
+    bias[j] = j2 < 0 ? (j < a.c1 ? a.b1[j] : 0.f)
+              : j3 < 0 ? (j2 < a.c2 ? a.b2[j2] : 0.f) : (j3 < a.c3 ? a.b3[j3] : 0.f);
+  }
+  for (int i = tid; i < 3 * kWgN; i += kThreads) {
+    const int ch = i / kWgN, j = i - ch * kWgN;
+    w1c[i] = j < a.c1 ? a.w1f[ch * a.c1 + j] : 0.f;
+  }
+
+  const int wg = tid / kWgThreads, wt = tid % kWgThreads;
+  const int warp = wt >> 5, lane = tid & 31, q = lane & 3;
+  unsigned char* ws = sm + lay.wg0 + wg * lay.per_wg;
+  float* stage = reinterpret_cast<float*>(ws + lay.stage);  // [kWgRows][ldst]
+  int* pmax = reinterpret_cast<int*>(ws + lay.pmax);        // [cpb][c3]: bits of the max-pool
+  int* rowmap = reinterpret_cast<int*>(ws + lay.rowmap);    // [cpb * kNs]: packed row ->
+                                                            // (point + 1) << 5 | centroid
+  float* cent = reinterpret_cast<float*>(ws + lay.cent);    // [cpb][3]
+  int* cnt = reinterpret_cast<int*>(ws + lay.cnt);          // [cpb]; -1: no centroid
+  int* off = reinterpret_cast<int*>(ws + lay.off);          // [cpb]: first packed row
+  int* mapg = reinterpret_cast<int*>(ws + lay.mapg);  // [2][kWgRows]: row -> centroid, -1 past
+  int* mapp = reinterpret_cast<int*>(ws + lay.mapp);  // [2][kWgRows]: -> cloud point, -1 zero row
+  for (int i = wt; i < cpb * a.c3; i += kWgThreads) pmax[i] = 0;  // +0.f
+  const uint32_t atile = smem_u32(ws + lay.atile);
+  const uint32_t w1s = smem_u32(sm + lay.w1), w2s = smem_u32(sm + lay.w2);
+  const uint32_t w3s = smem_u32(sm + lay.w3);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  fence_proxy_async();
+  __syncthreads();
+
+  const int groups = (a.s + cpb - 1) / cpb;
+  const long items = (long)a.b * groups;
+  const bool vec = (a.c & 3) == 0 && (reinterpret_cast<uintptr_t>(a.feat) & 15) == 0;
+  for (long item = (long)blockIdx.x * kWgs + wg; item < items; item += (long)gridDim.x * kWgs) {
+    const int b = (int)(item / groups), s0 = (int)(item % groups) * cpb;
+    const size_t row0 = (size_t)b * a.s + s0;
+    const float* xyz = a.xyz + (size_t)b * a.n * 3;
+    const float* feat = a.feat + (size_t)b * a.n * a.c;
+    // ---- the item's centroids and packed rows: centroid g owns
+    // max(min(count, kNs), 1) rows from the exclusive prefix off[g]
+    for (int i = wt; i < 3 * cpb; i += kWgThreads) {
+      cent[i] = s0 + i / 3 < a.s ? a.cent[row0 * 3 + i] : 0.f;
+    }
+    const int mine = lane < cpb && s0 + lane < a.s ? a.count[row0 + lane] : -1;
+    const int nrows = mine >= 0 ? max(min(mine, kNs), 1) : 0;
+    int incl = nrows;  // every warp scans the counts; warp 0 keeps them
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += t;
+    }
+    const int total = __shfl_sync(0xffffffffu, incl, 31);
+    if (wt < cpb) {
+      cnt[wt] = mine;
+      off[wt] = incl - nrows;
+    }
+    wg_sync(wg);
+    // the item's row map: a packed row's centroid and cloud point (+ 1; 0:
+    // the zero raw row of a centroid without neighbours)
+#pragma unroll 4
+    for (int i = wt; i < cpb * kNs; i += kWgThreads) {
+      const int g = i / kNs, j = i - g * kNs, kept = min(cnt[g], kNs);
+      if (cnt[g] >= 0 && j < max(kept, 1)) {
+        rowmap[off[g] + j] = (j < kept ? a.idx[(row0 + g) * kNs + j] + 1 : 0) << 5 | g;
+      }
+    }
+    wg_sync(wg);
+
+    // Tile t's rows, two threads a row: their centroids and points into the
+    // maps (tile parity t & 1), and their raw rows [xyz, feat] as read into
+    // the staging rows by cp.async (nothing for a zero raw row).
+    const auto gather = [&](int t) {
+      const int r = wt >> 1, half = wt & 1, row = t * kWgRows + r;
+      int g = -1, p = -1;
+      if (row < total) {
+        const int e = rowmap[row];
+        g = e & 31;  // cpb <= 32
+        p = (e >> 5) - 1;
+      }
+      if (half == 0) {
+        mapg[(t & 1) * kWgRows + r] = g;
+        mapp[(t & 1) * kWgRows + r] = p;
+      }
+      if (p < 0) return;
+      float* dst = stage + r * ldst;
+      const float* fp = feat + (size_t)p * a.c;
+      if (half == 0) {
+        for (int k = 0; k < 3; ++k) cp_async4(dst + 1 + k, xyz + 3 * p + k);
+      }
+      if (vec) {
+        const int n4 = a.c / 4, j0 = half ? n4 / 2 : 0, j1 = half ? n4 : n4 / 2;
+        for (int j = j0; j < j1; ++j) cp_async16(dst + 4 + 4 * j, fp + 4 * j);
+      } else {
+        const int k0 = half ? a.c / 2 : 0, k1 = half ? a.c : a.c / 2;
+        for (int k = k0; k < k1; ++k) cp_async4(dst + 4 + k, fp + k);
+      }
+    };
+    // Tile t's A tile from the staging rows, rounded to bf16: column k + 1
+    // raw element k; column 0, those past 3 + c and rows without a point
+    // zero. A chunk of 8 columns is two aligned 16-byte loads and one 16-byte
+    // store, a warp's 32 rows' without bank conflicts (rows 272 bytes apart
+    // at SA1). The second load may run into the next row, or 16 bytes past
+    // the last: those columns are past 3 + c, masked.
+    const auto convert = [&](int t) {
+      const int* mp = mapp + (t & 1) * kWgRows;
+      for (int i = wt; i < kWgRows * (k1 / 8); i += kWgThreads) {
+        const int r = i % kWgRows, k0 = 8 * (i / kWgRows);
+        float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        if (mp[r] >= 0 && k0 <= kin) {
+          const float4 x0 = *reinterpret_cast<const float4*>(stage + r * ldst + k0);
+          const float4 x1 = *reinterpret_cast<const float4*>(stage + r * ldst + k0 + 4);
+          const float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v[e] = k0 + e >= 1 && k0 + e <= kin ? x[e] : 0.f;
+        }
+        *reinterpret_cast<uint4*>(ws + lay.atile + core_offset(r, k0, kWgRows)) =
+            make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
+                       pack_bf16(v[6], v[7]));
+      }
+    };
+
+    const int tiles = (total + kWgRows - 1) / kWgRows;
+    gather(0);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    for (int t = 0; t < tiles; ++t) {
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      wg_sync(wg);  // tile t's raw rows are in; the warpgroup is past tile t - 1
+      convert(t);
+      fence_proxy_async();
+      wg_sync(wg);  // the A tile is written; the staging rows are free
+      if (t + 1 < tiles) gather(t + 1);  // in flight through the three layers
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+      const int* rows = mapg + (t & 1) * kWgRows + 16 * warp;  // the warp's 16 rows
+      const TileRows tr = tile_rows(rows, cent, lane);
+      const int g_first = rows[0];  // the rows' centroids: g_first .. g_last (-1: none)
+      const int g_last = __reduce_max_sync(0xffffffffu, lane < 16 ? rows[lane] : -1);
+      float acc[64];   // each product's first k step overwrites it (scale_d 0)
+      uint32_t h[32];  // the next layer's A fragments: h[4 kk .. 4 kk + 3] its k step kk
+
+      // layer 1: A the raw rows, B W1^T, both in shared memory
+      wg_fence();
+      for (int kk = 0; kk < k1 / 16; ++kk) {
+        wgmma_ss(acc, wg_desc(atile + kk * 32 * kWgRows, kWgRows),
+                 wg_desc(w1s + kk * 32 * kWgN, kWgN), kk);
+      }
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(acc);
+      // (acc + b1) - W1[:3]^T c of the row's own centroid, ReLU, bf16: the C
+      // fragment of 8-column group j is the A fragment's half of k step j / 2
+#pragma unroll
+      for (int j = 0; j < kWgN / 8; ++j) {
+        const int col = 8 * j + 2 * q;
+        const float b0 = bias[col], b1 = bias[col + 1];
+        const float c00 = recentre(w1c, kWgN, col, tr.lo[0], tr.lo[1], tr.lo[2]);
+        const float c01 = recentre(w1c, kWgN, col + 1, tr.lo[0], tr.lo[1], tr.lo[2]);
+        const float c10 = recentre(w1c, kWgN, col, tr.hi[0], tr.hi[1], tr.hi[2]);
+        const float c11 = recentre(w1c, kWgN, col + 1, tr.hi[0], tr.hi[1], tr.hi[2]);
+        h[2 * j] = pack_bf16(fmaxf(acc[4 * j] + b0 - c00, 0.f),
+                             fmaxf(acc[4 * j + 1] + b1 - c01, 0.f));
+        h[2 * j + 1] = pack_bf16(fmaxf(acc[4 * j + 2] + b0 - c10, 0.f),
+                                 fmaxf(acc[4 * j + 3] + b1 - c11, 0.f));
+      }
+
+      // layer 2: A h1 in registers, B W2^T
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgN / 16; ++kk) {
+        wgmma_rs(acc, h[4 * kk], h[4 * kk + 1], h[4 * kk + 2], h[4 * kk + 3],
+                 wg_desc(w2s + kk * 32 * kWgN, kWgN), kk);
+      }
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(acc);
+      reg_fence(h);
+#pragma unroll
+      for (int j = 0; j < kWgN / 8; ++j) {
+        const int col = 8 * j + 2 * q;
+        const float b0 = bias[kWgN + col], b1 = bias[kWgN + col + 1];
+        h[2 * j] = pack_bf16(fmaxf(acc[4 * j] + b0, 0.f), fmaxf(acc[4 * j + 1] + b1, 0.f));
+        h[2 * j + 1] = pack_bf16(fmaxf(acc[4 * j + 2] + b0, 0.f), fmaxf(acc[4 * j + 3] + b1, 0.f));
+      }
+
+      // layer 3: A h2 in registers, B W3^T, one or two products of kWgN
+      // columns, both issued before the first is pooled by centroid
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgN / 16; ++kk) {
+        wgmma_rs(acc, h[4 * kk], h[4 * kk + 1], h[4 * kk + 2], h[4 * kk + 3],
+                 wg_desc(w3s + kk * 32 * kWgN, kWgN), kk);
+      }
+      wg_commit();
+      const float* b3 = bias + 2 * kWgN;
+      if (n3 > kWgN) {  // uniform
+        float acc2[64];
+#pragma unroll
+        for (int kk = 0; kk < kWgN / 16; ++kk) {
+          wgmma_rs(acc2, h[4 * kk], h[4 * kk + 1], h[4 * kk + 2], h[4 * kk + 3],
+                   wg_desc(w3s + kWgN * kWgN * 2 + kk * 32 * kWgN, kWgN), kk);
+        }
+        wg_commit();
+        wg_wait<1>();
+        reg_fence(acc);
+        pool_rows(acc, b3, 0, tr, g_first, g_last, pmax, a.c3, lane);
+        wg_wait<0>();
+        reg_fence(acc2);
+        reg_fence(h);
+        pool_rows(acc2, b3 + kWgN, kWgN, tr, g_first, g_last, pmax, a.c3, lane);
+      } else {
+        wg_wait<0>();
+        reg_fence(acc);
+        reg_fence(h);
+        pool_rows(acc, b3, 0, tr, g_first, g_last, pmax, a.c3, lane);
+      }
+    }
+    wg_sync(wg);  // every max of the item is in pmax
+    float* out = a.out + row0 * a.c3;
+    for (int i = wt; i < cpb * a.c3; i += kWgThreads) {
+      if (s0 + i / a.c3 < a.s) out[i] = __int_as_float(pmax[i]);
+      pmax[i] = 0;
+    }
+  }
+}
+
+// kWgmma: the wgmma MLP (exact, in-cloud, no raw block), else mma.sync.
+template <bool kRaw, bool kPoint0, bool kFast, bool kWgmma>
+__global__ void __launch_bounds__(kThreads, kWgmma ? 1 : 2) sa_kernel_mma(SaArgs a) {
+  extern __shared__ float4 smem4[];
+  if constexpr (kWgmma) {
+    static_assert(!kRaw && !kPoint0 && !kFast, "the wgmma MLP is the exact in-cloud stage's");
+    wgmma_mlp(a, reinterpret_cast<unsigned char*>(smem4));
+  } else {
+    mma_sync_mlp<kRaw, kPoint0, kFast>(a, smem4);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launch plans
 // ---------------------------------------------------------------------------
 
@@ -1267,17 +1865,28 @@ cudaError_t device_attribute(cudaDeviceAttr attr, int* value) {
 struct Plan {
   void (*kernel)(SaArgs);
   size_t smem;
-  int mma;   // 1: the tensor-core kernel
-  int cpb;   // centroids per block
-  int rows;  // rows per tile: 16 (tensor-core), 32 or 128 (CUDA-core)
+  int mma;   // 1: the tensor-core kernel on mma.sync, 2: on wgmma
+  int cpb;   // centroids per block (wgmma: per work item)
+  int rows;  // rows per tile: 16 (mma.sync), 64 (wgmma), 32 or 128 (CUDA-core)
   int tr;    // CUDA-core kernel: output rows a thread owns, 4 or 8
+  int grid;  // wgmma: the persistent blocks
 };
 
 template <bool kRaw, bool kPoint0, bool kFast>
 void pick(Plan* p) {
-  p->kernel = p->mma        ? sa_kernel_mma<kRaw, kPoint0, kFast>
+  p->kernel = p->mma == 2  ? sa_kernel_mma<false, false, false, true>
+              : p->mma     ? sa_kernel_mma<kRaw, kPoint0, kFast, false>
               : p->tr == 8 ? sa_kernel<8, kRaw, kPoint0, kFast>
                            : sa_kernel<4, kRaw, kPoint0, kFast>;
+}
+
+// Whether the wgmma kernel takes these widths: a layer wider than 64 (SA1,
+// not SA0), the padded widths within its products (wg_k1, n1p, n2p <= kWgN;
+// n3p <= 2 kWgN), and its shared memory at 8 centroids an item.
+bool wg_fits(int c, int c1, int c2, int c3, size_t optin) {
+  return std::max({c1, c2, c3}) > 64 && wg_k1(3 + c) <= kWgN && round16(c1) <= kWgN &&
+         round16(c2) <= kWgN && round16(c3) <= 2 * kWgN &&
+         wg_layout(3 + c, round16(c3), c3, kMinCpb).total <= optin;
 }
 
 // The CUDA-core kernel's tile at these widths, the first that fits in
@@ -1300,13 +1909,18 @@ bool cc_tile(int kin, int c1, int c2, int c3, size_t optin, Plan* p) {
 
 // The MLP launch for b rows of s centroids at these widths and options: the
 // kernel, its dynamic shared memory, its centroids per block and its tile.
-// bf16 takes the tensor-core kernel when it fits the device's shared memory
-// at 8 centroids a block, else the CUDA-core kernel; f32 takes the CUDA-core
-// kernel. Both take the largest of 32, 16 and 8 centroids a block whose
-// shared memory fits and whose grid still fills the card once (b * ceil(s /
-// cpb) blocks at least the blocks per SM at that size times the SMs), else
-// 8. The CUDA-core kernel asks more: a grid of at least two blocks a SM as
-// well as a full wave (its blocks are long: at SA1 B=32, one block a SM, 256
+// bf16 takes the wgmma kernel on the exact in-cloud path without the raw
+// block where wg_fits, else the mma.sync kernel when it fits the device's
+// shared memory at 8 centroids a block, else the CUDA-core kernel; f32 takes
+// the CUDA-core kernel. The wgmma kernel's grid is persistent, one block a
+// SM for as many as its items need, and takes 8 centroids an item (its
+// warpgroups balance best over the smallest items: SA1 at B=512 took 1.81
+// ms at 8 and 1.84 at 16 on an H100). The others take the largest of 32, 16
+// and 8 centroids a block whose shared memory fits and whose grid still
+// fills the card once (b * ceil(s / cpb) blocks at least the blocks per SM
+// at that size times the SMs), else 8. The CUDA-core kernel asks more: a
+// grid of at least two blocks a SM as well as a full wave (its blocks are
+// long: at SA1 B=32, one block a SM, 256
 // blocks of 16 centroids took 5% longer than 512 of 8 on an H100; at SA0
 // B=32, two a SM, 512 of 32 took 9% less than 1024 of 16), and as many
 // blocks a SM as at 8. cpb_req (8, 16 or 32; 0: the rule's choice) sets it
@@ -1322,9 +1936,11 @@ cudaError_t plan(int b, int s, int c, int c1, int c2, int c3, int bf16, int in_c
   cudaError_t e = device_attribute(cudaDevAttrMaxSharedMemoryPerBlockOptin, &optin);
   if (e == cudaSuccess) e = device_attribute(cudaDevAttrMultiProcessorCount, &sms);
   if (e != cudaSuccess) return e;
-  p->mma = bf16 && mma_smem_bytes(k1p, n1p, n2p, n3p, c3, kMinCpb) <= (size_t)optin;
-  p->rows = kTile;
+  p->mma = bf16 && !fast && !raw && in_cloud && wg_fits(c, c1, c2, c3, optin) ? 2
+           : bf16 && mma_smem_bytes(k1p, n1p, n2p, n3p, c3, kMinCpb) <= (size_t)optin;
+  p->rows = p->mma == 2 ? kWgRows : kTile;
   p->tr = 0;
+  p->grid = 0;
   if (!p->mma && !cc_tile(3 + c, c1, c2, c3, optin, p)) return cudaErrorInvalidValue;
   if (fast) {
     pick<false, false, true>(p);
@@ -1336,8 +1952,12 @@ cudaError_t plan(int b, int s, int c, int c1, int c2, int c3, int bf16, int in_c
     pick<false, true, false>(p);
   }
   const auto smem_at = [&](int cpb) {
-    return p->mma ? mma_smem_bytes(k1p, n1p, n2p, n3p, c3, cpb)
-                  : cc_smem_bytes(3 + c, c1, c2, c3, p->rows, p->tr, cpb);
+    return p->mma == 2 ? (size_t)wg_layout(3 + c, n3p, c3, cpb).total
+           : p->mma    ? mma_smem_bytes(k1p, n1p, n2p, n3p, c3, cpb)
+                       : cc_smem_bytes(3 + c, c1, c2, c3, p->rows, p->tr, cpb);
+  };
+  const auto per_sm_at = [&](size_t smem, int* per_sm) {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, p->kernel, kThreads, smem);
   };
   int per_sm_min = 0;  // the CUDA-core kernel's blocks a SM at cpb 8
   if (!p->mma && cpb_req == 0) {
@@ -1349,13 +1969,13 @@ cudaError_t plan(int b, int s, int c, int c1, int c2, int c3, int bf16, int in_c
     if (e != cudaSuccess) return e;
   }
   for (int cpb = 32; cpb >= kMinCpb; cpb /= 2) {
-    if (cpb_req != 0 && cpb != cpb_req) continue;
+    if (cpb_req != 0 ? cpb != cpb_req : p->mma == 2 && cpb != kMinCpb) continue;
     const size_t smem = smem_at(cpb);
     if (smem > (size_t)optin) {
       if (cpb_req != 0) return cudaErrorInvalidValue;
       continue;
     }
-    const long blocks = (long)b * ((s + cpb - 1) / cpb);
+    const long blocks = (long)b * ((s + cpb - 1) / cpb);  // wgmma: work items
     // a grid below one block a SM never fills the card; at 8 blocks a SM
     // (2048 threads) and above it always does, without asking
     if (cpb_req == 0 && cpb != kMinCpb && blocks < sms) continue;
@@ -1363,13 +1983,20 @@ cudaError_t plan(int b, int s, int c, int c1, int c2, int c3, int bf16, int in_c
     if (e != cudaSuccess) return e;
     if (cpb_req == 0 && cpb != kMinCpb && (blocks < 8L * sms || !p->mma)) {
       int per_sm = 0;
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, p->kernel, kThreads, smem);
+      e = per_sm_at(smem, &per_sm);
       if (e != cudaSuccess) return e;
       const long need = p->mma ? per_sm : std::max(per_sm, 2);
       if (blocks < need * sms || per_sm < per_sm_min) continue;
     }
     p->cpb = cpb;
     p->smem = smem;
+    if (p->mma == 2) {
+      int per_sm = 0;
+      e = per_sm_at(smem, &per_sm);
+      if (e != cudaSuccess) return e;
+      if (per_sm < 1) return cudaErrorInvalidValue;
+      p->grid = (int)std::min((blocks + kWgs - 1) / kWgs, (long)per_sm * sms);
+    }
     return cudaSuccess;
   }
   return cudaErrorInvalidValue;  // not reached: cpb = 8 fits (mma, or the tile)
@@ -1465,16 +2092,18 @@ int mpn_sa(const float* xyz, const float* feat, const float* cent, const int* ch
   }
   SaArgs a{xyz, feat, cent, chunks, w1, w1f, b1, w2, b2, w3, b3, w1t, w2t, w3t, out, idx,
            fast ? nullptr : count, raw, n, s, c, kp, c1, c2, c3, window, bf16,
-           round16(3 + c), round16(c1), round16(c2), round16(c3), r2, p.cpb, p.rows};
-  p.kernel<<<dim3((s + p.cpb - 1) / p.cpb, b), kThreads, p.smem, st>>>(a);
+           round16(3 + c), round16(c1), round16(c2), round16(c3), r2, p.cpb, p.rows, b};
+  const dim3 grid = p.mma == 2 ? dim3(p.grid) : dim3((s + p.cpb - 1) / p.cpb, b);
+  p.kernel<<<grid, kThreads, p.smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
 // The MLP launch mpn_sa makes for b rows of s centroids at these widths and
-// options, with cpb as mpn_sa takes it: *mma 1 for the tensor-core kernel,
-// its dynamic shared memory in bytes, the blocks of it that fit on one SM,
-// its centroids per block, its rows per tile and (CUDA-core kernel) the
-// output rows a thread owns, 4 or 8 (0 on the tensor cores). Returns a
+// options, with cpb as mpn_sa takes it: *mma 1 for the tensor-core kernel
+// on mma.sync, 2 on wgmma, 0 for the CUDA-core kernel; its dynamic shared
+// memory in bytes, the blocks of it that fit on one SM, its centroids per
+// block (wgmma: per work item), its rows per tile and (CUDA-core kernel)
+// the output rows a thread owns, 4 or 8 (0 on the tensor cores). Returns a
 // cudaError_t.
 int mpn_sa_plan(int b, int s, int c, int c1, int c2, int c3, int bf16, int in_cloud, int raw,
                 int fast, int cpb, int* mma, int* smem, int* blocks_per_sm, int* cpb_out,

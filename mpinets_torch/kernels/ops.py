@@ -19,11 +19,14 @@ Port of ``mpinets_tpu/kernels/pallas_ops.py``:
 
 The SA stages take their MLP as :class:`SAWeights`, rounded and laid out
 for the kernel once by :func:`prepare_sa_weights`. Under bf16 the kernel
-runs the MLP on the tensor cores from the bf16 copies there; under f32 on
-the CUDA cores (register-tiled f32 FFMA over tiles of 128 packed rows, the
-weights streamed through shared memory). Both pack 8, 16 or 32
-centroids a block (:func:`sa_launch_plan` says which kernel a stage gets,
-its centroids per block and rows per tile).
+runs the MLP on the tensor cores from the bf16 copies there: on ``wgmma``
+(64-row tiles, a persistent grid) for exact in-cloud stages without the raw
+block whose layers are wider than 64 (SA1), else on ``mma.sync`` (16-row
+tiles); under f32 on the CUDA cores (register-tiled f32 FFMA over tiles of
+128 packed rows, the weights streamed through shared memory). All pack
+the rows of 8, 16 or 32 centroids a block or work item
+(:func:`sa_launch_plan` says which kernel a stage gets, its centroids per
+block and rows per tile).
 
 A wrapper given CPU tensors computes the plain version, which repeats the
 kernel's arithmetic (the raw-row layer 1 with the folded recentring bias,
@@ -703,13 +706,15 @@ def sa_launch_plan(weights: SAWeights, c: int, b: int, s: int, in_cloud: bool = 
     """The MLP launch :func:`sa_kernel` makes for these weights, C input
     features, B rows and S centroids on the current CUDA device (``fast``:
     the window-scan instantiation; ``centroids_per_block`` as
-    :func:`sa_kernel` takes it): ``mma`` 1 for the tensor-core kernel
-    (bf16), 0 for the CUDA-core one; its dynamic shared memory in bytes; the
-    blocks of it that fit on one SM; ``cpb``, its centroids per block; and
-    ``tile_rows``, its rows per tile (16 on the tensor cores; 128 or 32 on
-    the CUDA cores); and ``thread_rows``, the output rows a thread of the
-    CUDA-core kernel owns (4 or 8; 0 on the tensor cores). Raises where the
-    kernel does not take
+    :func:`sa_kernel` takes it): ``mma`` 2 for the tensor-core kernel on
+    ``wgmma`` (bf16, exact, in-cloud, no raw block, a layer wider than 64:
+    SA1), 1 on ``mma.sync`` (the other bf16 stages), 0 for the CUDA-core one;
+    its dynamic shared memory in bytes; the blocks of it that fit on one SM;
+    ``cpb``, its centroids per block (``wgmma``: per work item of its
+    persistent grid); ``tile_rows``, its rows per tile (64 on ``wgmma``, 16
+    on ``mma.sync``; 128 or 32 on the CUDA cores); and ``thread_rows``, the
+    output rows a thread of the CUDA-core kernel owns (4 or 8; 0 on the
+    tensor cores). Raises where the kernel does not take
     ``centroids_per_block``, or where no tile of the CUDA-core kernel fits."""
     _check_cpb(centroids_per_block)
     c1, c2, c3 = weights.w1.shape[1], weights.w2.shape[1], weights.w3.shape[1]

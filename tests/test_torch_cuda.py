@@ -283,14 +283,23 @@ def _variant(variant, args, device, radius, dtype=torch.bfloat16):
     return ops.sa_stage(xyz, feat, cent, w, radius, **VARIANTS[variant])
 
 
+def _mma_kind(variant, widths):
+    """The tensor-core kernel the plan gives a bf16 variant at these widths
+    (C1, C2, C3): 2 (wgmma) for the exact in-cloud stage without the raw
+    block whose layers are wider than 64, else 1 (mma.sync)."""
+    return 2 if variant == "sa" and max(widths) > 64 else 1
+
+
 def _check_mma(cuda, variant, args, radius):
-    """bf16 kernel against plain: the tensor-core kernel is the one launched,
-    idx equal, raw bit-equal, features within 1e-2 x max(1, max|f|)."""
+    """bf16 kernel against plain: the tensor-core kernel the plan names
+    (_mma_kind) is the one launched, idx equal, raw bit-equal, features
+    within 1e-2 x max(1, max|f|)."""
     w = _stage_args(args, cuda)[3]
     b, _, c = args[1].shape
     plan = ops.sa_launch_plan(w, c, b, args[2].shape[1], variant != "sa_v3", variant == "sa_raw",
                               variant == "sa_fast")
-    assert plan["mma"] == 1, plan
+    widths = (w.w1.shape[1], w.w2.shape[1], w.w3.shape[1])
+    assert plan["mma"] == _mma_kind(variant, widths), plan
     before = ops.LAUNCHES[variant]
     out = _variant(variant, args, cuda, radius)
     torch.cuda.synchronize()
@@ -364,7 +373,7 @@ def test_sa_mma_bit_equal_across_centroids_per_block(cuda, variant, widths):
                 _kernel_variant(variant, args, SPREAD_R, cpb)
             continue
         plan = ops.sa_launch_plan(*plan_args)
-        assert (plan["mma"], plan["cpb"]) == (1, cpb), plan
+        assert (plan["mma"], plan["cpb"]) == (_mma_kind(variant, SPREADS[widths][2]), cpb), plan
         outs[cpb] = _kernel_variant(variant, args, SPREAD_R, cpb)
     torch.cuda.synchronize()
     ref = outs[8]
@@ -418,7 +427,8 @@ def test_sa_centroids_per_block_outside_the_set_or_beyond_shared_memory_raises(c
 @pytest.mark.cuda
 def test_sa_launch_plan_takes_more_centroids_per_block_at_large_batch(cuda):
     """SA0's widths: 32 centroids a block at B=64 and 256 (the grid still
-    fills the card), 8 at B <= 3; SA1 stays within shared memory."""
+    fills the card), 8 at B <= 3; SA1 stays within shared memory, on wgmma
+    (mma 2) on the exact path and mma.sync (mma 1) on the fast one."""
     cases = {"sa0": (1, (64, 64, 64), 512), "sa1": (64, (128, 128, 256), 128)}
     plans = {}
     for name, (c, mlp, s) in cases.items():
@@ -429,7 +439,8 @@ def test_sa_launch_plan_takes_more_centroids_per_block_at_large_batch(cuda):
     for fast in (False, True):
         assert [plans["sa0", b, fast]["cpb"] for b in (1, 3, 64, 256)] == [8, 8, 32, 32], plans
         assert all(plans["sa1", b, fast]["cpb"] in FITTING_CPB["sa1"] for b in (1, 3, 64, 256))
-    assert all(p["mma"] == 1 and p["blocks_per_sm"] >= 1 for p in plans.values()), plans
+    assert all(p["mma"] == (2 if (name, fast) == ("sa1", False) else 1) and p["blocks_per_sm"] >= 1
+               for (name, _, fast), p in plans.items()), plans
 
 
 @pytest.mark.cuda
@@ -453,6 +464,125 @@ def test_sa_bf16_beyond_shared_memory_takes_the_cuda_core_kernel(cuda):
     for cpb in ops.SA_CENTROIDS_PER_BLOCK:
         out = _kernel_variant("sa", _stage_args(args, cuda), 0.3, cpb)
         assert torch.equal(out[0], feats) and torch.equal(out[1], idx), cpb
+
+
+# ---------------------------------------------------------------------------
+# The wgmma instantiation (exact, in-cloud, no raw block, a layer wider than
+# 64): SA1's widths and widths that are multiples of 16 but not of 64, at the
+# main paths' batches; counts across its 64-row tiles and its work items;
+# bit-equal whatever the grid or the work items
+# ---------------------------------------------------------------------------
+
+# C, (C1, C2, C3), N, S, radius: "by16" has 32 input columns with the zero
+# one (3 + 29 features, not a multiple of 4: the 4-byte copies), a 48-wide
+# layer 1 and a second layer-3 product of 80 columns
+WG_WIDTHS = {"sa1": (64, (128, 128, 256), 512, 128, 0.3),
+             "by16": (29, (48, 112, 208), 300, 40, 0.3)}
+WG_CPB = 8  # the plan's centroids a work item
+
+
+def _exact_plain(xyz, feat, cent, w, radius, rows=64):
+    """The exact in-cloud stage's plain version on the card, ``rows`` batch
+    rows at a time. -> (features, idx)"""
+    outs = [ops.sa_plain(xyz[i:i + rows], feat[i:i + rows], cent[i:i + rows], w, radius)
+            for i in range(0, xyz.shape[0], rows)]
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3, 256, 512])
+@pytest.mark.parametrize("widths", sorted(WG_WIDTHS))
+def test_sa_wgmma_matches_plain(cuda, widths, b):
+    """The wgmma kernel (the plan's mma 2, 64-row tiles) against plain at the
+    main paths' batches: idx equal, features within 1e-2 x max(1, max|f|);
+    one sa launch."""
+    c, mlp, n, s, radius = WG_WIDTHS[widths]
+    xyz, feat, cent, w = _stage_args(_sa_inputs(40, b=b, n=n, s=s, c=c, widths=mlp), cuda)
+    plan = ops.sa_launch_plan(w, c, b, s)
+    assert (plan["mma"], plan["tile_rows"], plan["thread_rows"], plan["cpb"]) == (2, 64, 0, WG_CPB)
+    before = ops.LAUNCHES["sa"]
+    feats, idx = ops.sa_stage(xyz, feat, cent, w, radius, impl="v8", centroids_in_cloud=True)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["sa"] == before + 1
+    ref, ref_idx = _exact_plain(xyz, feat, cent, w, radius)
+    assert torch.equal(idx, ref_idx)
+    scale = max(1.0, ref.abs().max().item())
+    err = (feats - ref).abs().max().item()
+    assert err <= 1e-2 * scale, (err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("widths", sorted(WG_WIDTHS))
+def test_sa_wgmma_counts_across_tile_and_item_edges(cuda, widths, masked):
+    """SPREAD_TILES' counts (0, 1, 63, 64, 65, 127, 128 and beyond, whose
+    packed rows put 64-row tile edges inside and between centroids:
+    test_spread_tiles_puts_row_tile_edges_inside_and_between_centroids) in
+    work items of 8 and 16 centroids (33 centroids: a partial last item):
+    against plain, and bit-equal between the two; ``masked``: rows past a
+    count would win the max-pool if they entered it."""
+    c, mlp, *_ = WG_WIDTHS[widths]
+    inputs = _spread_inputs(43 + masked, c, mlp, masked, spread=SPREAD_TILES)
+    args = _stage_args(inputs, cuda)
+    b, _, _ = inputs[1].shape
+    ref, ref_idx = _variant("sa", inputs, "cpu", SPREAD_R)
+    scale = max(1.0, ref.abs().max().item())
+    outs = {}
+    for cpb in (8, 16):
+        plan = ops.sa_launch_plan(args[3], c, b, len(SPREAD_TILES), centroids_per_block=cpb)
+        assert (plan["mma"], plan["cpb"], plan["tile_rows"]) == (2, cpb, 64), plan
+        outs[cpb] = _kernel_variant("sa", args, SPREAD_R, cpb)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(outs[cpb][1].cpu().numpy(), ref_idx.numpy())
+        err = (outs[cpb][0].cpu() - ref).abs().max().item()
+        assert err <= 1e-2 * scale, (cpb, err, scale)
+    assert all(map(torch.equal, outs[8], outs[16]))
+
+
+@pytest.mark.cuda
+def test_sa_wgmma_bit_equal_across_grids_and_work_items(cuda):
+    """The same 64 batch rows launched at once (1,024 items on the whole
+    card), row by row (16 items, 8 blocks) and in halves (a second grid), at
+    8 and 16 centroids an item: features bit-equal (an output row depends on
+    its own A row alone, summed in the same k order)."""
+    c, mlp, n, s, radius = WG_WIDTHS["sa1"]
+    xyz, feat, cent, w = _stage_args(_sa_inputs(44, b=64, n=n, s=s, c=c, widths=mlp), cuda)
+    sel = ops.sa_select(xyz, cent, radius)
+
+    def run(lo, hi, cpb=None):
+        return ops.sa_kernel(xyz[lo:hi], feat[lo:hi], cent[lo:hi], w, radius,
+                             selection=(sel[0][lo:hi], sel[1][lo:hi]),
+                             centroids_per_block=cpb)[0]
+
+    whole = run(0, 64)
+    for other in (run(0, 64, 16), torch.cat([run(i, i + 1) for i in range(64)]),
+                  torch.cat([run(0, 32, 16), run(32, 64)])):
+        assert torch.equal(other, whole), (other != whole).sum().item()
+
+
+@pytest.mark.cuda
+def test_sa_wgmma_launch_plan(cuda):
+    """ops.sa_launch_plan names the wgmma kernel (mma 2, 64-row tiles, 8
+    centroids a work item, one block a SM) for the exact in-cloud SA1 stage
+    at the main paths' batches, and keeps the old plans of the stages it
+    does not take: SA0, the raw block, centroids off the cloud and the fast
+    window on mma.sync (mma 1, 16-row tiles), f32 on the CUDA cores."""
+    stages = {"sa0": (1, (64, 64, 64), 512), "sa1": (64, (128, 128, 256), 128)}
+    for name, (c, mlp, s) in stages.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            w = _stage_args(_sa_inputs(45, b=1, n=200, s=8, c=c, widths=mlp), cuda, dtype)[3]
+            for b in (1, 3, 10, 64, 256, 512):
+                for in_cloud, raw, fast in ((True, False, False), (True, True, False),
+                                            (False, False, False), (True, False, True)):
+                    plan = ops.sa_launch_plan(w, c, b, s, in_cloud, raw, fast)
+                    key = (name, dtype, b, in_cloud, raw, fast)
+                    if dtype == torch.float32:
+                        assert plan["mma"] == 0 and plan["tile_rows"] in (32, 128), (key, plan)
+                    elif name == "sa1" and (in_cloud, raw, fast) == (True, False, False):
+                        assert (plan["mma"], plan["tile_rows"], plan["thread_rows"],
+                                plan["cpb"], plan["blocks_per_sm"]) == (2, 64, 0, WG_CPB, 1), plan
+                    else:
+                        assert (plan["mma"], plan["tile_rows"]) == (1, 16), (key, plan)
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,12 @@ the CUDA-core kernel's 64- and 128-row tiles, each variant bit-equal under
 8, 16 and 32 centroids a block, as fits, in both types (also the exact and
 fast SA0 at B=256 and SA1 at B=32, timed by centroids per block), the bf16
 CUDA-core kernel at layers too wide for the tensor cores' shared memory --
-and the train path's parameter gradients, kernels against plain versions. It
+and the train path's parameter gradients, kernels against plain versions,
+and the SA backward kernels (``csrc/sa_bwd.cu``, on ``wgmma``; the row
+kernel spills at most ``SA_BWD_SPILL`` bytes of per-item scalars) at
+B=1, 3 and 64 and at every shape the train paths launched them at,
+against their plain version, timed beside their bound, the plain version
+and the replay they replaced. It
 then checks the
 full-width forward against the plain paths and drives, with random weights
 made from a seed, each path a user calls: the planning server
@@ -138,7 +143,11 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 from unittest import mock
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+from torch_sa_cases import exact_mlp, grid_cloud, rel_l2  # noqa: E402  (shared with the tests)
 
 SEED = 0
 B = 256
@@ -149,6 +158,7 @@ TRAIN_BATCHES = (10, 64)  # the reference per-device batch (config.py:45), and a
 TRAIN_MIN_S = 5.0         # seconds of timed train steps per batch size and rate
 TRAIN_CHUNK = 5           # train steps per timed chunk
 GRAD_B = 8                # batch of the train-gradient check
+SA_BWD_BATCHES = (1, 3, 64)  # the SA backward kernels' timed batches (the train cell's: 64)
 PLAIN_ROWS = 16           # rows per plain-version call, to bound its memory
 SPREAD = (0, 1, 15, 16, 17, 31, 127, 128, 200)  # neighbours per centroid, across the tiles
 # SA0's spread: 49 centroids, so packed tiles of 16 rows hold 1 to 16
@@ -177,6 +187,14 @@ FWD_BF16_TOL = 2e-2       # full forward, kernel path vs plain path, bf16 (relat
 # its own and the whole policy's bf16-to-f32 distance.
 GRAD_ATOL, GRAD_RTOL = 2e-5, 1e-4
 BF16_GRAD_FACTOR = 2 ** 0.5
+# the SA backward kernel vs its plain version, relative L2 per output, under
+# exact_mlp weights: one term an output, or SA_BWD_TERMS on a grid cloud,
+# where every sum of the forward is exact in any order. Under dense weights
+# a row's bf16 activations round apart where its f32 sums do, and rows near
+# a max swap: those are held as the train gradients are (BF16_GRAD_FACTOR).
+SA_BWD_TOL = 1e-4
+SA_BWD_TERMS = 8
+SA_BWD_SPILL = 16  # bytes the SA backward's row kernel may spill (per-item scalars)
 
 # H100 SXM peak of the bf16 tensor cores (NVIDIA data sheet, dense); those of
 # HBM and the f32 CUDA cores are mpinets_torch.probes.session's.
@@ -189,6 +207,7 @@ TPU_SOURCES = {
     "sa_raw": "mpinets_tpu/kernels/pallas_ops.py:749",
     "sa_v3": "mpinets_tpu/kernels/pallas_ops.py:267",
     "sa_fast": "mpinets_tpu/kernels/pallas_ops.py:989",
+    "sa_bwd": None,  # the JAX package's SA backward is plain XLA (model/fused_train.py:128-188)
 }
 # The TPU probe kernels. One CUDA kernel serves several TPU probes, so each
 # probe's record from mpinets_torch/probes/session.py names the script lines
@@ -204,7 +223,7 @@ SCAN_WAS_MS = {"hits": 0.3216, "count": 0.6442, "count_noscan": 0.6499, "slot": 
 CUDA_SOURCES = {"fps": "mpinets_torch/csrc/fps.cu", "sa_select": "mpinets_torch/csrc/sa.cu",
                 "sa": "mpinets_torch/csrc/sa.cu",
                 "sa_raw": "mpinets_torch/csrc/sa.cu", "sa_v3": "mpinets_torch/csrc/sa.cu",
-                "sa_fast": "mpinets_torch/csrc/sa.cu",
+                "sa_fast": "mpinets_torch/csrc/sa.cu", "sa_bwd": "mpinets_torch/csrc/sa_bwd.cu",
                 **dict.fromkeys(PROBE_KERNELS, "mpinets_torch/csrc/probes.cu")}
 
 
@@ -253,6 +272,7 @@ def plain_ops(ops):
     ``sa_stage`` stays, so its mapping of ``impl`` and ``centroids_in_cloud``
     onto the kernel is compared too."""
     with mock.patch.object(ops, "sa_kernel", ops.sa_plain), \
+            mock.patch.object(ops, "sa_stage_backward", ops.sa_stage_backward_plain), \
             mock.patch.object(ops, "furthest_point_sample_with_coords",
                               lambda xyz, npoint, impl="v1": ops.fps_plain(xyz, npoint)):
         yield
@@ -283,9 +303,142 @@ def plain_policy_path(model, pc, q, cdt, fast=0, bf16_cloud=False):
         return by_rows(fwd, pc, q)
 
 
-def rel_l2(a, b):
-    """Relative L2 distance of two tensors: |a - b| / |b|."""
-    return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+def sa_backward_row(mlp, xyz, feat, centroids, radius, n_points, smi, gen, launches=0):
+    """The SA backward kernels (``ops.sa_stage_backward``) on one stage as the
+    bf16 train step runs it: the v8 forward of the MLP ``mlp`` (six f32
+    Dense tensors) on (xyz, feat, centroids), then the backward of a random
+    cotangent, with the features' cotangent for ``n_points`` (SA1). Raised:
+    per output, the relative L2 to the plain version within
+    ``BF16_GRAD_FACTOR`` x the larger of the plain version's bf16-to-f32
+    distance and the whole backward's, as the train gradients are held;
+    dW and db bit-equal across two calls; and within ``SA_BWD_TOL`` under
+    ``exact_mlp`` weights: one term an output on this cloud (each product
+    sums one term), and ``SA_BWD_TERMS`` terms on a grid cloud of this
+    shape (every sum of the forward exact in any order). Timed: the
+    kernels, the plain version, the replay they replaced (autograd of
+    ``fused_train._mlp_max`` over the raw block, the feature cotangent
+    summed by index_add) and the bound: the forward, the input and the
+    weight cotangents over the valid rows at the bf16 peak, or the valid raw
+    rows, idx, g and gf once at the memory rate. -> the kernels-line entry."""
+    import torch
+
+    from mpinets_torch.kernels import ops
+    from mpinets_torch.model.fused_train import _mlp_max
+
+    bf16, dev = torch.bfloat16, xyz.device
+    xyz, feat, centroids = (t.detach() for t in (xyz, feat, centroids))
+    b, s = centroids.shape[:2]
+    g = torch.randn((b, s, mlp[-1].shape[0]), generator=gen).to(dev)
+
+    def prepared(tensors, cdt=bf16):
+        return ops.prepare_sa_weights(*(t.to(dev) for t in tensors), compute_dtype=cdt)
+
+    def backward(weights, x=xyz, f=feat, c=centroids):
+        """The forward's raw block, then (kernel, plain) of its backward."""
+        _, idx, raw = ops.sa_stage(x, f, c, weights, radius, impl="v8", centroids_in_cloud=True,
+                                   return_raw=True)
+        args = (raw, idx, c, weights, g, n_points)
+        return args, ops.sa_stage_backward(*args), ops.sa_stage_backward_plain(*args)
+
+    def worst(kernel, plain):
+        return max(rel_l2(k, p) for k, p in zip(kernel, plain) if p is not None)
+
+    w = prepared(mlp)
+    args, kern, plain = backward(w)
+    raw, idx = args[:2]
+    plain32 = ops.sa_stage_backward_plain(raw, idx, centroids, prepared(mlp, torch.float32), g,
+                                          n_points)
+    pairs = [(k, p, p32) for k, p, p32 in zip(kern, plain, plain32) if p is not None]
+    whole = rel_l2(torch.cat([p.flatten() for _, p, _ in pairs]),
+                   torch.cat([p32.flatten() for _, _, p32 in pairs]))
+    ratio = max(rel_l2(k, p) / (BF16_GRAD_FACTOR * max(rel_l2(p, p32), whole))
+                for k, p, p32 in pairs)
+    again = ops.sa_stage_backward(*args)
+    same = all(torch.equal(a, b_) for a, b_ in zip(kern[1:], again[1:]))
+    dims = (raw.shape[-1],) + tuple(t.shape[1] for t in mlp[::2])
+    one = worst(*backward(prepared(exact_mlp(dims, gen)))[1:])
+    xg, fg = (t.to(dev) for t in grid_cloud(*feat.shape[:2], feat.shape[2], gen))
+    cg = ops.furthest_point_sample_with_coords(xg, s)[1]
+    grid = worst(*backward(prepared(exact_mlp(dims, gen, SA_BWD_TERMS)), xg, fg, cg)[1:])
+
+    valid = ops.valid_slots(idx)
+    dense = [t.to(dev) for t in mlp]
+
+    def replay():
+        raw_ = raw.detach().requires_grad_(n_points is not None)
+        tensors = [t.detach().requires_grad_() for t in dense]
+        with torch.enable_grad():
+            grads = torch.autograd.grad(_mlp_max(raw_, centroids, valid, *tensors, bf16),
+                                        ([raw_] if n_points is not None else []) + tensors, g)
+        if n_points is not None:
+            c = raw.shape[-1] - 3
+            delta = (grads[0][..., 3:] * valid[..., None]).to(bf16).float()
+            at = idx.long() + n_points * torch.arange(b, device=dev)[:, None, None]
+            torch.zeros((b * n_points, c), device=dev).index_add_(0, at.reshape(-1),
+                                                                   delta.reshape(-1, c))
+
+    kin, (c1, c2, c3) = dims[0], dims[1:]
+    count = int(valid.sum())
+    flops = 2.0 * count * (2 * (kin * c1 + c1 * c2 + c2 * c3) + c1 * c2 + c2 * c3
+                           + (kin * c1 if n_points else 0))
+    nbytes = 4 * (count * kin + idx.numel() + g.numel()
+                  + (b * n_points * (kin - 3) if n_points else 0))
+    bound_ms, bound_by = bound(nbytes, 0.0, flops)
+    ms = cuda_ms(lambda: ops.sa_stage_backward(*args), 10)
+    row = {"name": f"sa_bwd B={b} N={n_points or 0} S={s}", "route": "cuda",
+           "source": CUDA_SOURCES["sa_bwd"], "replaces": TPU_SOURCES["sa_bwd"],
+           "launches": launches,
+           "max_abs_err": max((k - p).abs().max().item() for k, p, _ in pairs), "ms": ms,
+           "plain_ms": cuda_ms(lambda: ops.sa_stage_backward_plain(*args), 2),
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+           "replay_ms": cuda_ms(replay, 2), "valid_rows": count,
+           "rel_l2": worst(kern, plain), "rel_l2_over_gate": ratio, "rel_l2_one_term": one,
+           "rel_l2_grid": grid, "cpb": ops.sa_bwd_plan(b, s, *dims)["cpb"]}
+    log(f"  {row['name']}: {launches} launches; {ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}, {100 * bound_ms / ms:.1f}%), plain {row['plain_ms']:.3f} ms, replay "
+        f"{row['replay_ms']:.3f} ms, {count} valid rows; worst rel L2 to plain "
+        f"{row['rel_l2']:.2e} ({ratio:.3f} of its gate), dW bit-equal across calls {same}, "
+        f"{one:.2e} (exact_mlp weights), {grid:.2e} ({SA_BWD_TERMS} terms, grid cloud) [{smi}]")
+    if not (ratio <= 1.0 and same and one <= SA_BWD_TOL and grid <= SA_BWD_TOL):
+        raise AssertionError(f"{row['name']}: kernel vs plain out of its gates: {row}, "
+                             f"dW bit-equal {same}")
+    return row
+
+
+def sa_backward_rows(model, batch, smi, gen):
+    """:func:`sa_backward_row` for SA0 and SA1 on a training batch, with the
+    model's weights, as the bf16 train step runs them. -> the two rows."""
+    from mpinets_torch.kernels import ops
+    from mpinets_torch.model import fused
+    from mpinets_torch.model.fused_train import _mlp_tensors
+
+    enc = model.point_cloud_encoder
+    xyz, feat = batch["xyz"][..., :3].contiguous(), batch["xyz"][..., 3:].contiguous()
+    rows = []
+    for stage, (size, npoint) in enumerate(zip(fused.stage_sizes(model), (512, 128))):
+        mlp = [t.detach() for t in _mlp_tensors((enc.sa0, enc.sa1)[stage])]
+        _, cent = ops.furthest_point_sample_with_coords(xyz, npoint)
+        n = xyz.shape[1] if stage else None
+        rows.append(sa_backward_row(mlp, xyz, feat, cent, size["radius"], n, smi, gen))
+        feat = ops.sa_stage(xyz, feat, cent, ops.prepare_sa_weights(*mlp), size["radius"],
+                            impl="v8", centroids_in_cloud=True)[0]  # SA1's features
+        xyz = cent
+    return rows
+
+
+def sa_backward_at_shape(key, launches, cache, xyz, feat, sa_w, mlps, radii, smi, gen):
+    """:func:`sa_backward_row` at a main path's launch key ("sa_bwd", B, N,
+    S), N the features' points for SA1 and 0 for SA0, on the stage inputs
+    of the cloud of that shape (``stage_inputs``). -> the kernels-line entry."""
+    import torch
+
+    _, b, n, s = key
+    stage = 1 if n else 0
+    cloud = next((c for c in CLOUDS if (c[1:] == (n, s) if n else c[1] == s)), None)
+    if cloud is None:
+        raise AssertionError(f"{key}: no stage of the clouds {CLOUDS} has this shape")
+    xs, fs, cs, _ = stage_inputs(cache, b, cloud, xyz, feat, sa_w[torch.bfloat16], radii)[stage]
+    return sa_backward_row(mlps[stage], xs, fs, cs, radii[stage], n or None, smi, gen, launches)
 
 
 def step_times(step, min_s, chunk):
@@ -395,7 +548,6 @@ def sass_text(lib):
     """A built library's SASS (``cuobjdump -sass``), or None where the
     toolkit has no cuobjdump."""
     import shutil
-    from pathlib import Path
 
     from mpinets_torch.kernels import ops
 
@@ -860,7 +1012,6 @@ def run_evaluation(model, smi, count_path):
     at full widths, from a problem-set pickle and a ``.npz`` of the random
     policy, in each mode of EVAL_RUNS, with its gates. -> per-run summary."""
     import pickle
-    from pathlib import Path
 
     import numpy as np
     import torch
@@ -1660,7 +1811,7 @@ def run_data_parallel(smi, dev, planned, count_path):
             for _ in range(3):
                 metrics = step(hdf5.to_device(next(stream), dev))
             torch.cuda.synchronize()
-            count_path(f"data-parallel train B={b_}", ("fps", "sa_select", "sa_raw"))
+            count_path(f"data-parallel train B={b_}", ("fps", "sa_select", "sa_raw", "sa_bwd"))
             if not all(np.isfinite(float(v)) for v in metrics.values()):
                 raise AssertionError(f"data-parallel train B={b_}: {metrics}")
             raw = hdf5.to_device(next(stream), dev)
@@ -1735,7 +1886,7 @@ def run_data_parallel(smi, dev, planned, count_path):
         torch.cuda.synchronize()
         t_step = time.perf_counter() - t0 - t_collect
         count_path(f"hdf5-actor collect B={DAGGER_B} and its DP step",
-                   ("fps", "sa_select", "sa", "sa_raw"))
+                   ("fps", "sa_select", "sa", "sa_raw", "sa_bwd"))
         if not all(np.isfinite(float(v)) for v in a_metrics.values()):
             raise AssertionError(f"hdf5-actor DP step: {a_metrics}")
         summary["actor"] = {"collect_s": t_collect, "step_s": t_step,
@@ -1770,7 +1921,7 @@ def run_data_parallel(smi, dev, planned, count_path):
                 st = trainer.run()
                 torch.cuda.synchronize()
                 count_path("trainer, hdf5 mode with the actor", ("fps", "sa_select", "sa",
-                                                                  "sa_raw"))
+                                                                  "sa_raw", "sa_bwd"))
                 rows = [json.loads(line) for line in open(trainer.ckpt_dir / "metrics.jsonl")]
             act = [r for r in rows if "dagger_accept_frac" in r]
             if st.step != 13 or [r["step"] for r in act] != [3, 6, 9]:
@@ -2186,7 +2337,7 @@ def main() -> int:
     from mpinets_torch.kernels import kinematics
     from mpinets_torch.model import checkpoint as ckpt
     from mpinets_torch.model import fused
-    from mpinets_torch.model.fused_train import make_fused_train_apply
+    from mpinets_torch.model.fused_train import _mlp_tensors, make_fused_train_apply
     from mpinets_torch.model.policy import MotionPolicyNetwork
     from mpinets_torch.probes import micro, scan
     from mpinets_torch.probes import session as probe_session
@@ -2225,6 +2376,7 @@ def main() -> int:
                   *(f"sa_kernel<tr={tr}, raw={r}, point0={p0}, fast={f}>"
                     for tr in (4, 8) for r, p0, f in variants),
                   *(f"sa_select_kernel<{cpw}>" for cpw in (1, 2, 4)),
+                  "sa_bwd_dw_kernel", "sa_bwd_reduce_kernel",
                   *(f"probe_scan_kernel<{m}>" for m in range(len(scan.SCAN_MODES))),
                   *micro.roll_instantiations(),
                   *(f"probe_micro_kernel<{micro.MICRO_OPS.index(o)}>" for o in ("gather", "vadd")),
@@ -2234,6 +2386,13 @@ def main() -> int:
         res = resources.get(kname, {})
         if res.get("spill_stores", 1) or res.get("spill_loads", 1):
             raise AssertionError(f"{kname} spills (or is missing): {res}")
+    # the SA backward's row kernel fills its 255 registers in the tile loop
+    # and spills a few per-item scalars outside it (8-12 bytes in its SASS,
+    # none inside the loop): at most SA_BWD_SPILL bytes
+    res = resources.get("sa_bwd_rows_kernel", {})
+    if not (res and max(res["spill_stores"], res["spill_loads"]) <= SA_BWD_SPILL):
+        raise AssertionError(f"sa_bwd_rows_kernel spills more than {SA_BWD_SPILL} bytes "
+                             f"(or is missing): {res}")
     # the roll's rep loop at the session's rb: one FADD a held row and one SHFL
     # a rep (a loop unrolled k times: k kC FADD and k SHFL)
     roll_plan = micro.micro_plan(probe_session.FULL["rb"], "roll_wide")
@@ -2270,6 +2429,11 @@ def main() -> int:
                 or not all(v[0] for k, v in mma_kernels.items() if k not in wg)):
             raise AssertionError(f"sa_kernel_mma instantiations without tensor-core "
                                  f"instructions: {hmma}")
+        # the SA backward's row and weight-cotangent kernels run on wgmma
+        bwd = {k: v for k, v in sass_hmma(ops._target("sa_bwd")).items() if "sa_bwd_" in k}
+        log(f"(HMMA, HGMMA) instructions in the SASS of sa_bwd.cu, per kernel: {bwd}")
+        if not all(v[1] for k, v in bwd.items() if "rows" in k or "dw" in k) or len(bwd) != 3:
+            raise AssertionError(f"sa_bwd kernels without wgmma: {bwd}")
 
     gen = torch.Generator().manual_seed(SEED)
     model = MotionPolicyNetwork(compute_dtype=bf16, device="cpu", generator=gen).to(dev).eval()
@@ -2565,7 +2729,8 @@ def main() -> int:
         f"max |dq| {scale:.3f}")
     torch.cuda.synchronize()
 
-    phase(f"fused train step: kernels vs plain, B={GRAD_B}, full widths")
+    phase(f"fused train step: kernels vs plain, B={GRAD_B}, full widths; the SA backward "
+          f"kernels at B={SA_BWD_BATCHES}: vs plain, times, bounds and the replay they replaced")
     tb = training_batch(torch.Generator(dev).manual_seed(SEED + 3), GRAD_B, device=dev)
 
     def train_grads(cdt, sa_impl="v8"):
@@ -2610,6 +2775,10 @@ def main() -> int:
             raise AssertionError(f"train gradients bf16 ({sa_impl}): {ratios[0][1]} rel L2 "
                                  f"{ratios[0][2]} > {ratios[0][3]}")
     model.zero_grad(set_to_none=True)
+    bwd_gen = torch.Generator().manual_seed(SEED + 5)
+    for b_ in SA_BWD_BATCHES:
+        sa_backward_rows(model, training_batch(torch.Generator(dev).manual_seed(SEED + 4), b_,
+                                               device=dev), smi, bwd_gen)
 
     # ---- 3+4. the main paths: server, batched rollout, v3 rollout, trainer -
     main_launches = Counter()
@@ -2723,7 +2892,7 @@ def main() -> int:
             state = trainer.run()
             torch.cuda.synchronize()
             t_run = time.perf_counter() - t0
-            count_path(f"trainer B={tb_size}", ("fps", "sa_select", "sa_raw", "sa"))
+            count_path(f"trainer B={tb_size}", ("fps", "sa_select", "sa_raw", "sa", "sa_bwd"))
             rows = [json.loads(line) for line in open(trainer.ckpt_dir / "metrics.jsonl")]
             val = [r for r in rows if "avg_target_error" in r]
             losses = [r["val_loss"] for r in rows if "val_loss" in r]
@@ -2801,7 +2970,7 @@ def main() -> int:
         ops.reset_launches()
         small = Trainer(cfg, test=True, device="cuda").run()
         torch.cuda.synchronize()
-        count_path("trainer, small cloud", ("fps", "sa_select", "sa_raw", "sa"))
+        count_path("trainer, small cloud", ("fps", "sa_select", "sa_raw", "sa", "sa_bwd"))
         if small.step != 10 or not all(torch.isfinite(p).all() for p in small.model.parameters()):
             raise AssertionError(f"trainer, small cloud: step {small.step} or non-finite weights")
     # ---- 4b. the evaluation path: cli.infer --------------------------------
@@ -2930,7 +3099,12 @@ def main() -> int:
     log(f"main-path launches by (kernel, B, N, S): {by_shape}")
     inputs = {}
     kernels = [time_at_shape(key, launches, inputs, xyz, feat, sa_w, stage_radii, smi)
-               for key, launches in sorted(by_shape.items())]
+               for key, launches in sorted(by_shape.items()) if key[0] != "sa_bwd"]
+    enc = model.point_cloud_encoder
+    mlps = [[t.detach() for t in _mlp_tensors(sa)] for sa in (enc.sa0, enc.sa1)]
+    kernels += [sa_backward_at_shape(key, launches, inputs, xyz, feat, sa_w, mlps, stage_radii,
+                                     smi, bwd_gen)
+                for key, launches in sorted(by_shape.items()) if key[0] == "sa_bwd"]
     rank = Counter()
     for r in kernels:
         rank[r["name"].split()[0]] += r["launches"] * (r["ms"] - r["bound_ms"])

@@ -16,6 +16,9 @@ Port of ``mpinets_tpu/kernels/pallas_ops.py``:
 * :func:`sa_stage_fast` -- ``csrc/sa.cu`` (chunk-window scan), replacing
   ``_sa_kernel_f1``. The window choice stays here, in torch, as the JAX
   package keeps it in XLA.
+* :func:`sa_stage_backward` -- ``csrc/sa_bwd.cu``, the train step's
+  backward of an exact in-cloud bf16 stage over its valid rows. It replaces
+  no TPU kernel: the JAX package's backward is plain XLA.
 
 The SA stages take their MLP as :class:`SAWeights`, rounded and laid out
 for the kernel once by :func:`prepare_sa_weights`. Under bf16 the kernel
@@ -37,7 +40,8 @@ kernel: ``fps``; ``sa_select`` (the exact ball query); the SA MLP kernel by
 variant, ``sa`` (exact, in-cloud), ``sa_raw`` (exact, with the raw block),
 ``sa_v3`` (exact, off-cloud) or ``sa_fast`` (its own window scan), each
 with ``_f32`` appended under f32 weights (the CUDA-core kernel; bf16 runs
-the tensor-core one). An exact
+the tensor-core one); ``sa_bwd`` once a call of :func:`sa_stage_backward`
+(its three kernels). An exact
 SA stage counts one ``sa_select`` and one MLP launch; an FPS launch also
 counts under its plan in :data:`FPS_LAUNCHES_BY_PLAN`. The TPU probe kernels
 (``csrc/probes.cu``, wrapped in :mod:`mpinets_torch.probes`) count as
@@ -67,7 +71,7 @@ from mpinets_torch.kernels import pointnet
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = {"fps": "fps.cu", "sa": "sa.cu", "probes": "probes.cu"}
+SOURCES = {"fps": "fps.cu", "sa": "sa.cu", "sa_bwd": "sa_bwd.cu", "probes": "probes.cu"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -89,8 +93,8 @@ SA_CENTROIDS_PER_BLOCK = (8, 16, 32)
 #: Kernel launches since the last :func:`reset_launches`, by wrapper.
 LAUNCHES: Dict[str, int] = {"fps": 0, "sa_select": 0, "sa": 0, "sa_raw": 0, "sa_v3": 0,
                             "sa_fast": 0, "sa_f32": 0, "sa_raw_f32": 0, "sa_v3_f32": 0,
-                            "sa_fast_f32": 0, "probe_scan": 0, "probe_micro": 0, "probe_wide": 0,
-                            "probe_scratch": 0}
+                            "sa_fast_f32": 0, "sa_bwd": 0, "probe_scan": 0, "probe_micro": 0,
+                            "probe_wide": 0, "probe_scratch": 0}
 #: The same launches by (kernel, B, N, S): batch, cloud size, and samples or
 #: centroids.
 LAUNCHES_BY_SHAPE: Counter = Counter()
@@ -107,6 +111,8 @@ _SIGNATURES = {
     "mpn_sa_plan": [_I] * 11 + [_P] * 6,
     "mpn_sa_select": [_P, _P, _I, _I, _I, ctypes.c_float, _P, _P, _P],
     "mpn_sa_select_plan": [_I] * 3 + [_P] * 3,
+    "mpn_sa_bwd": [_P] * 11 + [_I] * 7 + [_P] * 9,
+    "mpn_sa_bwd_plan": [_I] * 6 + [_P] * 5,
     "mpn_probe_scan": [_P] * 3 + [_I] * 3 + [ctypes.c_float, _I, _P, _P],
     "mpn_probe_scan_plan": [_I, _I, _P, _P],
     "mpn_probe_micro": [_P, _P] + [_I] * 4 + [_P, _P, _P],
@@ -528,6 +534,24 @@ def sa_select_plain(xyz, centroids, radius: float, chunks: Optional[torch.Tensor
     return idx, torch.clamp(count, max=NSAMPLE).to(torch.int32)
 
 
+def sa_mlp_rows_plain(raw, centroids, weights: SAWeights, slot0=None):
+    """The SA MLP on every slot of a raw block [B, S, 128, 3 + C], in the
+    MLP kernel's arithmetic: the raw rows rounded, the recentring folded
+    into layer 1's bias, the hidden activations rounded. ``slot0``, a
+    (mask [B, S], u1 [B, S, C1]) pair, puts its rows in slot 0's layer-1
+    pre-activation where the mask holds (:func:`sa_mlp_plain`'s off-cloud
+    centroids without neighbours). -> (u1, u2, z), the f32 pre-activations
+    of layers 1 and 2 and layer 3's ReLU output."""
+    rnd = _rounder(weights.compute_dtype)
+    w = weights
+    bc = centroids.float() @ w.w1_xyz                          # [B, S, C1]
+    u1 = rnd(raw) @ w.w1[: raw.shape[-1]] + w.b1 - bc[:, :, None, :]
+    if slot0 is not None:
+        u1[:, :, 0] = torch.where(slot0[0][..., None], slot0[1], u1[:, :, 0])
+    u2 = rnd(torch.relu(u1)) @ w.w2 + w.b2
+    return u1, u2, torch.relu(rnd(torch.relu(u2)) @ w.w3 + w.b3)
+
+
 def sa_mlp_plain(xyz, features, centroids, weights: SAWeights, idx, count,
                  in_cloud: bool = True, return_raw: bool = False):
     """Plain version of the MLP kernel, from a selection (``idx``, ``count``
@@ -543,19 +567,15 @@ def sa_mlp_plain(xyz, features, centroids, weights: SAWeights, idx, count,
                     dim=-1).float()
     raw = torch.where(found[..., None], raw, torch.zeros_like(raw))
     w = weights
-    bc = centroids.float() @ w.w1_xyz                         # [B, S, C1] f32
-    h = rnd(raw) @ w.w1[: raw.shape[-1]] + w.b1 - bc[:, :, None, :]
+    slot0 = None
     if not in_cloud:
         # count == 0: slot 0 is point 0's layer-1 row, unrounded, in f32
         pts0 = torch.cat([xyz[:, 0], features[:, 0]], dim=-1).float()  # [B, 3 + C]
         h0 = w.b1.expand(b, -1)
         for ch in range(pts0.shape[-1]):
             h0 = h0 + pts0[:, ch, None] * w.w1_f32[ch]
-        h0 = h0[:, None, :] - bc                              # [B, S, C1]
-        h[:, :, 0] = torch.where((count == 0)[..., None], h0, h[:, :, 0])
-    h = rnd(torch.relu(h))
-    h = rnd(torch.relu(h @ w.w2 + w.b2))
-    h = torch.relu(h @ w.w3 + w.b3)
+        slot0 = (count == 0, h0[:, None, :] - centroids.float() @ w.w1_xyz)
+    _, _, h = sa_mlp_rows_plain(raw, centroids, w, slot0)
     valid = torch.arange(NSAMPLE, device=xyz.device) < torch.clamp(count, min=1)[..., None]
     h = torch.where(valid[..., None], h, torch.full_like(h, -torch.inf))
     if return_raw:
@@ -775,6 +795,136 @@ def sa_stage(xyz, features, centroids, weights: SAWeights, radius: float,
     if _on_cpu(xyz, features, centroids, *weights.tensors):
         return sa_plain(xyz, features, centroids, weights, radius, None, in_cloud, return_raw)
     return sa_kernel(xyz, features, centroids, weights, radius, None, in_cloud, return_raw)
+
+
+class SABackward(NamedTuple):
+    """What :func:`sa_stage_backward` returns, all f32: the features'
+    cotangent [B, N, C] (None without one) and the MLP's, Dense [in, out]."""
+
+    gf: Optional[torch.Tensor]
+    dw1: torch.Tensor
+    db1: torch.Tensor
+    dw2: torch.Tensor
+    db2: torch.Tensor
+    dw3: torch.Tensor
+    db3: torch.Tensor
+
+
+def valid_slots(idx: torch.Tensor) -> torch.Tensor:
+    """The kept slots of an exact in-cloud selection, from its fill rule:
+    slot 0 and every slot whose index differs from slot 0's. -> bool [B, S, 128]."""
+    return torch.cat([torch.ones_like(idx[..., :1], dtype=torch.bool),
+                      idx[..., 1:] != idx[..., :1]], dim=-1)
+
+
+def sa_stage_backward_plain(raw, idx, centroids, weights: SAWeights, g,
+                            n_points: Optional[int] = None) -> SABackward:
+    """Plain version of the SA backward kernel, in its arithmetic.
+
+    The forward is recomputed as the MLP kernel computes it (raw rows
+    rounded, the recentring folded into layer 1's bias, the bf16 rounding
+    points of :func:`sa_mlp_plain`); each (centroid, channel) cotangent goes
+    to the valid rows equal to its max, split equally over ties, where the
+    max is > 0. Backward with the compute type's operands in every product
+    and f32 sums: dz3 -> dh2 [u2 > 0] -> dh1 [u1 > 0] and, with
+    ``n_points``, dx = dz1 W1^T, whose feature columns are rounded per
+    addend and summed into their points. Weight cotangents A^T dz over the
+    valid rows, layer 1's A the recentred rows rounded; bias cotangents the
+    f32 column sums of dz. raw [B, S, 128, 3 + C] f32 as the v8 forward
+    saves it, idx [B, S, 128], centroids [B, S, 3], g [B, S, C3] f32."""
+    rnd = _rounder(weights.compute_dtype)
+    w = weights
+    kin = raw.shape[-1]
+    valid = valid_slots(idx)
+    vmask = valid[..., None]
+    u1, u2, z = sa_mlp_rows_plain(raw, centroids, w)
+    h1, h2 = rnd(torch.relu(u1)), rnd(torch.relu(u2))
+    zmax = torch.where(vmask, z, torch.full_like(z, -torch.inf)).amax(dim=2, keepdim=True)
+    tie = vmask & (z == zmax)
+    share = g[:, :, None, :] / tie.sum(dim=2, keepdim=True).clamp(min=1)
+    dz3 = torch.where(tie & (zmax > 0), share, torch.zeros_like(z))
+    dz2 = (rnd(dz3) @ w.w3.t()) * (u2 > 0)
+    dz1 = (rnd(dz2) @ w.w2.t()) * (u1 > 0)
+    a1 = rnd(torch.cat([raw[..., :3] - centroids[:, :, None, :], raw[..., 3:]], dim=-1))
+
+    def cot(a, dz):
+        return a.reshape(-1, a.shape[-1]).t() @ rnd(dz).reshape(-1, dz.shape[-1])
+
+    gf = None
+    if n_points is not None:
+        b, c = raw.shape[0], kin - 3
+        dx = rnd((rnd(dz1) @ w.w1[:kin].t())[..., 3:]) * vmask
+        rows = idx.long() + n_points * torch.arange(b, device=idx.device)[:, None, None]
+        gf = torch.zeros((b * n_points, c), dtype=torch.float32, device=raw.device)
+        gf.index_add_(0, rows.reshape(-1), dx.reshape(-1, c))
+        gf = gf.reshape(b, n_points, c)
+    return SABackward(gf, cot(a1, dz1), dz1.sum(dim=(0, 1, 2)), cot(h1, dz2),
+                      dz2.sum(dim=(0, 1, 2)), cot(h2, dz3), dz3.sum(dim=(0, 1, 2)))
+
+
+def sa_bwd_plan(b: int, s: int, kin: int, c1: int, c2: int, c3: int) -> Dict[str, int]:
+    """The launches :func:`sa_stage_backward` makes for B rows of S
+    centroids at these widths on the current CUDA device: ``cpb``, centroids
+    per work item; ``grid``, the row kernel's persistent blocks; ``splits``,
+    the weight-cotangent kernel's blocks a layer; ``smem_bytes``, the row
+    kernel's dynamic shared memory; ``scratch_bytes``, the device scratch a
+    call takes (bf16 activations and cotangents of every row a selection
+    could hold, B * S * 128, and the f32 partial sums)."""
+    out = [ctypes.c_int64() for _ in range(5)]
+    rc = _library("sa_bwd").mpn_sa_bwd_plan(b, s, kin, c1, c2, c3, *map(ctypes.byref, out))
+    if rc != 0:
+        raise RuntimeError(f"mpn_sa_bwd_plan failed for B={b}, S={s}, widths "
+                           f"{(kin, c1, c2, c3)}: CUDA error {rc}")
+    return dict(zip(("cpb", "grid", "splits", "smem_bytes", "scratch_bytes"),
+                    (v.value for v in out)))
+
+
+def sa_stage_backward(raw, idx, centroids, weights: SAWeights, g,
+                      n_points: Optional[int] = None) -> SABackward:
+    """Backward of an exact in-cloud SA stage (``sa_stage(impl="v8",
+    return_raw=True)``) over its valid rows: the forward recomputed, the
+    max-pool's cotangent on the rows that hold each max, the MLP's backward
+    and, with ``n_points`` (the cloud's N), the features' cotangent. On CUDA
+    tensors the kernels of ``csrc/sa_bwd.cu`` (bf16 weights only), counted
+    once a call as ``sa_bwd``; on CPU tensors
+    :func:`sa_stage_backward_plain`, whose arithmetic they follow."""
+    if _on_cpu(raw, idx, centroids, g, *weights.tensors):
+        return sa_stage_backward_plain(raw, idx, centroids, weights, g, n_points)
+    w = weights
+    if w.compute_dtype != torch.bfloat16:
+        raise ValueError("the SA backward kernel runs bf16 stages")
+    b, s, _, kin = raw.shape
+    c1, c2, c3 = w.w1.shape[1], w.w2.shape[1], w.w3.shape[1]
+    _check(raw, "raw", (torch.float32,), (b, s, NSAMPLE, kin))
+    _check(idx, "idx", (torch.int32,), (b, s, NSAMPLE))
+    _check(centroids, "centroids", (torch.float32,), (b, s, 3))
+    _check(g, "g", (torch.float32,), (b, s, c3))
+    _check_rows(w, kin - 3)
+    for t, name, shape in zip(w.mma_tensors, ("w1t", "w2t", "w3t"),
+                              ((c1, kin), (c2, c1), (c3, c2))):
+        _check(t, name, (torch.bfloat16,), tuple(_ceil16(d) for d in shape))
+    if n_points is not None and not 1 <= n_points < 1 << 19:
+        raise ValueError(f"the SA backward kernel takes 1 <= N < 2**19 points, got {n_points}")
+    plan = sa_bwd_plan(b, s, kin, c1, c2, c3)
+    dev = raw.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    # gf one float into its storage: the kernel's column pairs (k, k + 1),
+    # k even, then lie 8 bytes aligned for its paired atomics (C even)
+    gf = None
+    if n_points is not None:
+        gf = torch.zeros(b * n_points * (kin - 3) + 1, **f32)[1:].view(b, n_points, kin - 3)
+    outs = SABackward(
+        gf,
+        torch.empty((kin, c1), **f32), torch.empty(c1, **f32), torch.empty((c1, c2), **f32),
+        torch.empty(c2, **f32), torch.empty((c2, c3), **f32), torch.empty(c3, **f32))
+    scratch = torch.empty(plan["scratch_bytes"], dtype=torch.uint8, device=dev)
+    _launch("sa_bwd", "mpn_sa_bwd", dev, raw.data_ptr(), idx.data_ptr(), centroids.data_ptr(),
+            g.data_ptr(), *(t.data_ptr() for t in w.mma_tensors), w.w1_f32.data_ptr(),
+            w.b1.data_ptr(), w.b2.data_ptr(), w.b3.data_ptr(), b, s, kin, c1, c2, c3,
+            n_points or 0, None if outs.gf is None else outs.gf.data_ptr(),
+            *(t.data_ptr() for t in outs[1:]), scratch.data_ptr())
+    _count("sa_bwd", b, n_points or 0, s)
+    return outs
 
 
 def sa_stage_fast(xyz, features, centroids, weights: SAWeights, radius: float,

@@ -7,12 +7,16 @@ gradient flows only through the gather -> shared MLP -> max-pool chain:
 * forward: the fused SA kernel (:func:`mpinets_torch.kernels.ops.sa_stage`),
   which also returns the selected indices and, for ``sa_impl="v8"``, the
   gathered raw block [B, S, 128, 3 + C];
-* backward: plain torch in a ``torch.autograd.Function``. For v8 it repeats
-  the dense MLP over the saved raw block, recentred first
+* backward, in a ``torch.autograd.Function``: for v8 under bf16, the
+  kernels of :func:`mpinets_torch.kernels.ops.sa_stage_backward`, which run
+  the stage's backward over the valid rows of the saved raw block in the
+  forward kernel's arithmetic (their plain version on CPU tensors). The
+  other stages replay in plain torch: v8 under f32 repeats the dense MLP
+  over all 128 slots of the raw block, recentred first
   (``fused_train.py:81-97,128-164``), with the valid mask rebuilt from the
-  fill convention; for v3/v5 it gathers again by the saved indices
-  (``fused_train.py:99-114,167-184``). The JAX package has no backward
-  kernel either (its VJP is plain XLA), so none is owed here.
+  fill convention; v3/v5 gather again by the saved indices
+  (``fused_train.py:99-114,167-184``). The JAX package's VJP is plain XLA:
+  the backward kernel replaces none of its kernels.
 
 FPS centroids are detached: they depend on the input cloud only.
 """
@@ -63,7 +67,8 @@ def _recompute(features, w1, b1, w2, b2, w3, b3, xyz, centroids, idx, cdt):
 
 
 class SAStageTrain(torch.autograd.Function):
-    """One SA stage: the kernel forward, the plain-torch backward.
+    """One SA stage: the kernel forward; the backward kernels for v8 under
+    bf16, else the plain-torch replay.
 
     Inputs: ``stage`` (a :class:`_Stage`), xyz [B, N, 3], features [B, N, C],
     centroids [B, S, 3] and the six f32 MLP tensors (Dense ``[in, out]``).
@@ -79,6 +84,7 @@ class SAStageTrain(torch.autograd.Function):
                            impl=stage.sa_impl, centroids_in_cloud=True, return_raw=use_raw)
         raw = out[2] if use_raw else None
         ctx.stage = stage
+        ctx.weights = weights
         ctx.save_for_backward(xyz, features, centroids, w1, b1, w2, b2, w3, b3, out[1], raw)
         return out[0]
 
@@ -87,14 +93,18 @@ class SAStageTrain(torch.autograd.Function):
         stage = ctx.stage
         cdt = stage.compute_dtype
         xyz, features, centroids, *mlp, idx, raw = ctx.saved_tensors
+        if raw is not None and cdt == torch.bfloat16:
+            n_points = features.shape[1] if stage.features_grad else None
+            gf, *grads = ops.sa_stage_backward(raw, idx, centroids, ctx.weights,
+                                               g.contiguous(), n_points)
+            return (None, None, gf, None, *grads)
         mlp = [t.detach().requires_grad_() for t in mlp]
         gf = None
         with torch.enable_grad():
             if raw is not None:
                 # fills repeat slot 0; every centroid is a cloud member, so
                 # slot 0 is always a real neighbour (fused_train.py:131-138)
-                valid = torch.cat([torch.ones_like(idx[..., :1], dtype=torch.bool),
-                                   idx[..., 1:] != idx[..., :1]], dim=-1)
+                valid = ops.valid_slots(idx)
                 raw_ = raw.detach().requires_grad_(stage.features_grad)
                 out = _mlp_max(raw_, centroids, valid, *mlp, cdt)
                 inputs = ([raw_] if stage.features_grad else []) + mlp

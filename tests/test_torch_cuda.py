@@ -10,9 +10,18 @@ Tolerances: FPS indices and coordinates exact (the distance code is never
 contracted into FMAs), for every class of launch plan; SA index arrays and
 raw blocks exact; SA features 1e-5 in f32 (sums in another order) and 1e-2
 in bf16 (one bf16 ulp of an activation; relative to max(1, max|f|) in the
-tensor-core and CUDA-core cases); the fused
+tensor-core and CUDA-core cases); the SA backward kernel's cotangents
+within 1e-4 relative L2 of its plain version's, tensor by tensor, under
+weights whose every layer has one nonzero term an output (dyadic values),
+so that the forward's activations, maxima and ties are the same bit for bit
+in any summation order (with dense weights, rows within f32 rounding of a
+max may swap, and a bf16 rounding flip can move a whole channel's
+cotangent to another row); the fused
 train path's f32 parameter gradients, kernels against plain versions,
-atol 2e-5 + 1e-4 max|g| (``test_fused_train.py``); the TPU probe kernels
+atol 2e-5 + 1e-4 max|g| (``test_fused_train.py``), and its bf16 ones
+within sqrt(2) times the larger of the tensor's and the whole model's
+bf16-to-f32 relative L2 distance (``chip_smoke.py``'s gate: kernel and
+plain round their sums apart, which moves bf16 maxima); the TPU probe kernels
 (``csrc/probes.cu``) bit-equal to their plain versions, which round and sum
 as the kernels do; the ball-query kernel's idx and count equal to its plain
 version's. The batched IK (plain torch) on the card against the CPU: f64
@@ -24,13 +33,16 @@ import numpy as np
 import pytest
 import torch
 
+from mpinets_torch.data import synthetic
 from mpinets_torch.kernels import ops
 from mpinets_torch.model import fused_train
 from mpinets_torch.model.policy import MotionPolicyNetwork
+from mpinets_torch.train import learner
 from mpinets_torch.probes import design, micro, scan, session
 
 import torch_fps_cases as fps_cases  # (tests dir is on sys.path under pytest)
 import torch_select_cases as select_cases
+from torch_sa_cases import exact_mlp, grid_cloud, rel_l2
 
 
 @pytest.fixture
@@ -881,11 +893,14 @@ def _plain_ops(monkeypatch):
     monkeypatch.setattr(ops, "furthest_point_sample_with_coords",
                         lambda xyz, npoint, impl="v1": ops.fps_plain(xyz, npoint))
     monkeypatch.setattr(ops, "sa_kernel", ops.sa_plain)
+    monkeypatch.setattr(ops, "sa_stage_backward", ops.sa_stage_backward_plain)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sa_impl", ["v8", "v3"])
-def test_fused_train_kernels_match_plain_gradients(cuda, monkeypatch, sa_impl):
+@pytest.mark.parametrize("sa_impl, dtype", [("v8", torch.float32), ("v3", torch.float32),
+                                            ("v8", torch.bfloat16)],
+                         ids=["v8", "v3", "v8-bf16"])
+def test_fused_train_kernels_match_plain_gradients(cuda, monkeypatch, sa_impl, dtype):
     rng = np.random.default_rng(15)
     pc = torch.from_numpy(np.concatenate([rng.uniform(-0.7, 0.7, (2, 640, 3)),
                                           rng.integers(0, 3, (2, 640, 1))], -1)
@@ -893,25 +908,153 @@ def test_fused_train_kernels_match_plain_gradients(cuda, monkeypatch, sa_impl):
     q = torch.from_numpy(rng.uniform(-1, 1, (2, 7)).astype(np.float32)).to(cuda)
     model = MotionPolicyNetwork(sa_npoints=(64, 16), device=cuda,
                                 generator=torch.Generator().manual_seed(15))
-    apply = fused_train.make_fused_train_apply(torch.float32, sa_npoints=(64, 16),
-                                               sa_impl=sa_impl)
 
-    def grads():
+    def grads(cdt=dtype):
+        apply = fused_train.make_fused_train_apply(cdt, sa_npoints=(64, 16), sa_impl=sa_impl)
         model.zero_grad()
         torch.sin(apply(model, pc, q)).sum().backward()
         return {k: p.grad.clone() for k, p in model.named_parameters()}
 
-    counter = ops.mlp_launch_name("sa_raw" if sa_impl == "v8" else "sa_v3", torch.float32)
-    before = ops.LAUNCHES[counter]
+    counter = ops.mlp_launch_name("sa_raw" if sa_impl == "v8" else "sa_v3", dtype)
+    before = ops.LAUNCHES[counter], ops.LAUNCHES["sa_bwd"]
     kernel = grads()
     torch.cuda.synchronize()
-    assert ops.LAUNCHES[counter] == before + 2
+    # the bf16 v8 backward runs the backward kernel, one launch a stage
+    bwd = 2 if (sa_impl, dtype) == ("v8", torch.bfloat16) else 0
+    assert (ops.LAUNCHES[counter], ops.LAUNCHES["sa_bwd"]) == (before[0] + 2, before[1] + bwd)
     _plain_ops(monkeypatch)
     plain = grads()
+    if dtype == torch.float32:
+        for k, ref in plain.items():
+            scale = max(ref.abs().max().item(), 1e-6)
+            np.testing.assert_allclose(kernel[k].cpu().numpy(), ref.cpu().numpy(),
+                                       atol=2e-5 + 1e-4 * scale, err_msg=k)
+        return
+    f32 = grads(torch.float32)
+    whole = rel_l2(torch.cat([g.flatten() for g in plain.values()]),
+                    torch.cat([f32[k].flatten() for k in plain]))
     for k, ref in plain.items():
-        scale = max(ref.abs().max().item(), 1e-6)
-        np.testing.assert_allclose(kernel[k].cpu().numpy(), ref.cpu().numpy(),
-                                   atol=2e-5 + 1e-4 * scale, err_msg=k)
+        gate = 2 ** 0.5 * max(rel_l2(ref, f32[k]), whole)
+        assert rel_l2(kernel[k], ref) <= gate, (k, rel_l2(kernel[k], ref), gate)
+
+
+# ---------------------------------------------------------------------------
+# The SA backward kernel (csrc/sa_bwd.cu) against its plain version
+# ---------------------------------------------------------------------------
+
+#: SA0 and SA1 of the policy: (cloud N, centroids S, features C, widths, radius)
+BWD_STAGES = {"sa0": (6272, 512, 1, (64, 64, 64), 0.05),
+              "sa1": (512, 128, 64, (128, 128, 256), 0.3)}
+
+
+def _bwd_inputs(device, b, stage, seed, terms=1):
+    """The stage's forward on a random cloud and FPS centroids, as the train
+    path runs it: (raw, idx, centroids, SAWeights, g, N or None). Weights of
+    ``exact_mlp``: one term an output, or ``terms`` on a grid cloud, where
+    every sum of the forward is exact in any summation order."""
+    n, s, c, widths, radius = BWD_STAGES[stage]
+    gen = torch.Generator().manual_seed(seed)
+    if terms == 1:
+        xyz = torch.rand((b, n, 3), generator=gen)
+        feat = (torch.randint(0, 3, (b, n, 1), generator=gen).float() if c == 1
+                else torch.rand((b, n, c), generator=gen))
+    else:
+        xyz, feat = grid_cloud(b, n, c, gen)
+    xyz, feat = xyz.to(device), feat.to(device)
+    mlp = exact_mlp((3 + c,) + widths, gen, terms)
+    weights = ops.prepare_sa_weights(*(t.to(device) for t in mlp))
+    _, cent = ops.furthest_point_sample_with_coords(xyz, s)
+    out, idx, raw = ops.sa_stage(xyz, feat, cent, weights, radius, impl="v8",
+                                 centroids_in_cloud=True, return_raw=True)
+    g = torch.randn(out.shape, generator=gen).to(device)
+    return raw, idx, cent, weights, g, n if c > 1 else None
+
+
+def _check_bwd(raw, idx, cent, weights, g, n):
+    before = ops.LAUNCHES["sa_bwd"]
+    kernel = ops.sa_stage_backward(raw, idx, cent, weights, g, n)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["sa_bwd"] == before + 1
+    plain = ops.sa_stage_backward_plain(raw, idx, cent, weights, g, n)
+    assert (kernel.gf is None) == (n is None)
+    for name, a, ref in zip(kernel._fields, kernel, plain):
+        if ref is None:
+            continue
+        assert a.shape == ref.shape and bool(torch.isfinite(a).all()), name
+        assert rel_l2(a, ref) <= 1e-4, (name, rel_l2(a, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("terms", [1, 8])
+@pytest.mark.parametrize("b", [1, 3, 64])
+@pytest.mark.parametrize("stage", ["sa0", "sa1"])
+def test_sa_backward_kernel_matches_plain(cuda, stage, b, terms):
+    _check_bwd(*_bwd_inputs(cuda, b, stage, 20 + b, terms))
+
+
+def _spread_bwd(device, counts, c, widths, seed=5):
+    """A selection with the given kept counts [B, S] (fill with the first)
+    over a random cloud, its raw block, and weights of these widths."""
+    gen = np.random.default_rng(seed)
+    b, s = counts.shape
+    n = 300
+    xyz = gen.uniform(0, 1, (b, n, 3)).astype(np.float32)
+    feat = gen.uniform(0, 1, (b, n, c)).astype(np.float32)
+    idx = np.zeros((b, s, 128), np.int32)
+    for bi in range(b):
+        for si in range(s):
+            pick = np.sort(gen.choice(n, counts[bi, si], replace=False))
+            idx[bi, si, :len(pick)], idx[bi, si, len(pick):] = pick, pick[0]
+    valid = np.arange(128) < counts[..., None]
+    rows = np.concatenate([np.take_along_axis(xyz, idx.reshape(b, -1, 1), 1),
+                           np.take_along_axis(feat, idx.reshape(b, -1, 1), 1)], -1)
+    raw = np.where(valid[..., None], rows.reshape(b, s, 128, -1), 0).astype(np.float32)
+    to = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+    mlp = exact_mlp((3 + c,) + widths, torch.Generator().manual_seed(seed))
+    weights = ops.prepare_sa_weights(*(t.to(device) for t in mlp))
+    g = to(gen.normal(size=(b, s, widths[-1])))
+    return (to(raw), torch.from_numpy(idx).to(device), to(xyz[:, :s]), weights, g,
+            n if c > 1 else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["sa0", "sa1"])
+def test_sa_backward_kernel_across_tile_and_item_edges(cuda, stage):
+    """Packed rows that end on, before and after the 64-row tiles, within
+    and between centroids; centroids of 1 and 128 rows; S not a multiple of
+    the centroids an item (37), so the last item of each row is partial."""
+    _, s, c, widths, _ = BWD_STAGES[stage]
+    spread = (1, 63, 64, 65, 128, 127, 1, 2, 62, 128, 128, 3)
+    counts = np.resize(np.array(spread), (3, 37))
+    counts[1] = np.roll(counts[1], 5)
+    _check_bwd(*_spread_bwd(cuda, counts, c, widths))
+    assert ops.sa_bwd_plan(3, 37, 3 + c, *widths)["cpb"] in (8, 32)
+
+
+@pytest.mark.cuda
+def test_bf16_train_step_never_synchronises(cuda):
+    """A warm bf16 train step's forward and backward on a prepared batch
+    (the backward kernels included) makes no blocking call."""
+    model = MotionPolicyNetwork(sa_npoints=(512, 128), device=cuda,
+                                generator=torch.Generator().manual_seed(3))
+    apply = fused_train.make_fused_train_apply(torch.bfloat16)
+    batch = synthetic.training_batch(torch.Generator(cuda).manual_seed(4), 4, device=cuda)
+
+    def step():
+        model.zero_grad()
+        total, _ = learner.loss_fn(model, batch, apply_fn=apply)
+        total.backward()
+
+    before = ops.LAUNCHES["sa_bwd"]
+    step()  # builds the kernels, copies the tables
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # a synchronising call raises
+    try:
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["sa_bwd"] == before + 4
 
 
 # ---------------------------------------------------------------------------

@@ -289,9 +289,12 @@ def test_wrappers_reject_bad_input_and_count_only_launches():
     ops.sa_stage(*args, radius=0.3)
     ops.furthest_point_sample_with_coords(_t(xyz), 8)
     ops.sa_select(_t(xyz), _t(cent), 0.3)
+    out, idx, raw = ops.sa_stage(*args, radius=0.3, impl="v8", centroids_in_cloud=True,
+                                 return_raw=True)
+    ops.sa_stage_backward(raw, idx, _t(cent), args[3], torch.ones_like(out), xyz.shape[1])
     assert ops.LAUNCHES == dict.fromkeys(("fps", "sa_select", "sa", "sa_raw", "sa_v3", "sa_fast",
                                           "sa_f32", "sa_raw_f32", "sa_v3_f32", "sa_fast_f32",
-                                          "probe_scan", "probe_micro", "probe_wide",
+                                          "sa_bwd", "probe_scan", "probe_micro", "probe_wide",
                                           "probe_scratch"), 0)
     # (plain versions launch nothing)
     assert not ops.LAUNCHES_BY_SHAPE

@@ -147,7 +147,12 @@ from pathlib import Path
 from unittest import mock
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
-from torch_sa_cases import exact_mlp, grid_cloud, rel_l2  # noqa: E402  (shared with the tests)
+from torch_sa_cases import (  # noqa: E402  (shared with the tests)
+    exact_mlp,
+    grid_cloud,
+    rel_l2,
+    replay_backward,
+)
 
 SEED = 0
 B = 256
@@ -287,17 +292,17 @@ def plain_policy_path(model, pc, q, cdt, fast=0, bf16_cloud=False):
     from mpinets_torch.model import fused
 
     w0, w1 = fused.sa_weights(model, cdt)
-    radii = [size["radius"] for size in fused.stage_sizes(model)]
+    sa0, sa1 = fused.stage_sizes(model)
 
     def fwd(p, q_):
         x, f = p[..., :3].contiguous(), p[..., 3:].contiguous()
         if bf16_cloud:
             x = x.to(torch.bfloat16)
-        _, c0 = ops.fps_plain(x, 512)
+        _, c0 = ops.fps_plain(x, sa0["npoint"])
         chunks = ops.chunk_window(x, c0, fast) if fast else None
-        f0_, _ = ops.sa_plain(x.float(), f, c0.float(), w0, radii[0], chunks)
-        _, c1 = ops.fps_plain(c0, 128)
-        f1_, _ = ops.sa_plain(c0.float(), f0_, c1.float(), w1, radii[1])
+        f0_, _ = ops.sa_plain(x.float(), f, c0.float(), w0, sa0["radius"], chunks)
+        _, c1 = ops.fps_plain(c0, sa1["npoint"])
+        f1_, _ = ops.sa_plain(c0.float(), f0_, c1.float(), w1, sa1["radius"])
         return fused.tail(model, c1.float(), f1_, q_, cdt)
     with torch.no_grad():
         return by_rows(fwd, pc, q)
@@ -315,15 +320,15 @@ def sa_backward_row(mlp, xyz, feat, centroids, radius, n_points, smi, gen, launc
     ``exact_mlp`` weights: one term an output on this cloud (each product
     sums one term), and ``SA_BWD_TERMS`` terms on a grid cloud of this
     shape (every sum of the forward exact in any order). Timed: the
-    kernels, the plain version, the replay they replaced (autograd of
-    ``fused_train._mlp_max`` over the raw block, the feature cotangent
-    summed by index_add) and the bound: the forward, the input and the
-    weight cotangents over the valid rows at the bf16 peak, or the valid raw
-    rows, idx, g and gf once at the memory rate. -> the kernels-line entry."""
+    kernels, the plain version, the replay they replaced
+    (``torch_sa_cases.replay_backward``: autograd of the dense MLP over the
+    raw block, the feature cotangent summed by index_add) and the bound:
+    the forward, the input and the weight cotangents over the valid rows at
+    the bf16 peak, or the valid raw rows, idx, g and gf once at the memory
+    rate. -> the kernels-line entry."""
     import torch
 
     from mpinets_torch.kernels import ops
-    from mpinets_torch.model.fused_train import _mlp_max
 
     bf16, dev = torch.bfloat16, xyz.device
     xyz, feat, centroids = (t.detach() for t in (xyz, feat, centroids))
@@ -365,17 +370,7 @@ def sa_backward_row(mlp, xyz, feat, centroids, radius, n_points, smi, gen, launc
     dense = [t.to(dev) for t in mlp]
 
     def replay():
-        raw_ = raw.detach().requires_grad_(n_points is not None)
-        tensors = [t.detach().requires_grad_() for t in dense]
-        with torch.enable_grad():
-            grads = torch.autograd.grad(_mlp_max(raw_, centroids, valid, *tensors, bf16),
-                                        ([raw_] if n_points is not None else []) + tensors, g)
-        if n_points is not None:
-            c = raw.shape[-1] - 3
-            delta = (grads[0][..., 3:] * valid[..., None]).to(bf16).float()
-            at = idx.long() + n_points * torch.arange(b, device=dev)[:, None, None]
-            torch.zeros((b * n_points, c), device=dev).index_add_(0, at.reshape(-1),
-                                                                   delta.reshape(-1, c))
+        replay_backward(raw, idx, centroids, dense, g, n_points, bf16)
 
     kin, (c1, c2, c3) = dims[0], dims[1:]
     count = int(valid.sum())
@@ -410,14 +405,13 @@ def sa_backward_rows(model, batch, smi, gen):
     model's weights, as the bf16 train step runs them. -> the two rows."""
     from mpinets_torch.kernels import ops
     from mpinets_torch.model import fused
-    from mpinets_torch.model.fused_train import _mlp_tensors
 
     enc = model.point_cloud_encoder
     xyz, feat = batch["xyz"][..., :3].contiguous(), batch["xyz"][..., 3:].contiguous()
     rows = []
-    for stage, (size, npoint) in enumerate(zip(fused.stage_sizes(model), (512, 128))):
-        mlp = [t.detach() for t in _mlp_tensors((enc.sa0, enc.sa1)[stage])]
-        _, cent = ops.furthest_point_sample_with_coords(xyz, npoint)
+    for stage, size in enumerate(fused.stage_sizes(model)):
+        mlp = [t.detach() for t in fused.mlp_tensors((enc.sa0, enc.sa1)[stage])]
+        _, cent = ops.furthest_point_sample_with_coords(xyz, size["npoint"])
         n = xyz.shape[1] if stage else None
         rows.append(sa_backward_row(mlp, xyz, feat, cent, size["radius"], n, smi, gen))
         feat = ops.sa_stage(xyz, feat, cent, ops.prepare_sa_weights(*mlp), size["radius"],
@@ -2337,7 +2331,7 @@ def main() -> int:
     from mpinets_torch.kernels import kinematics
     from mpinets_torch.model import checkpoint as ckpt
     from mpinets_torch.model import fused
-    from mpinets_torch.model.fused_train import _mlp_tensors, make_fused_train_apply
+    from mpinets_torch.model.fused_train import make_fused_train_apply
     from mpinets_torch.model.policy import MotionPolicyNetwork
     from mpinets_torch.probes import micro, scan
     from mpinets_torch.probes import session as probe_session
@@ -3101,7 +3095,7 @@ def main() -> int:
     kernels = [time_at_shape(key, launches, inputs, xyz, feat, sa_w, stage_radii, smi)
                for key, launches in sorted(by_shape.items()) if key[0] != "sa_bwd"]
     enc = model.point_cloud_encoder
-    mlps = [[t.detach() for t in _mlp_tensors(sa)] for sa in (enc.sa0, enc.sa1)]
+    mlps = [[t.detach() for t in fused.mlp_tensors(sa)] for sa in (enc.sa0, enc.sa1)]
     kernels += [sa_backward_at_shape(key, launches, inputs, xyz, feat, sa_w, mlps, stage_radii,
                                      smi, bwd_gen)
                 for key, launches in sorted(by_shape.items()) if key[0] == "sa_bwd"]

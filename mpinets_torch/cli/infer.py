@@ -166,8 +166,7 @@ def evaluate_problem_set(
         fused = device.type == "cuda"
     apply_fn = None
     if fused:
-        apply_fn = make_fused_apply(model.compute_dtype, sa_npoints=model.sa_npoints,
-                                    fast_grouping=fast_grouping)
+        apply_fn = make_fused_apply(model.compute_dtype, fast_grouping=fast_grouping)
     path = f"fused-cuda{f'+fast{fast_grouping}' if fast_grouping else ''}" if fused else "plain"
     print(f"# rollout path: {path} ({str(model.compute_dtype)[6:]}) on {device}", flush=True)
     rollout = make_rollout_fn(model, max_steps=max_steps, apply_fn=apply_fn, device=device)

@@ -106,10 +106,7 @@ class Planner:
         if fused:
             from mpinets_torch.model.fused import make_fused_apply
 
-            apply_fn = make_fused_apply(
-                model.compute_dtype, sa_npoints=model.sa_npoints,
-                fast_grouping=fast_grouping,
-            )
+            apply_fn = make_fused_apply(model.compute_dtype, fast_grouping=fast_grouping)
         print(f"# rollout path: {'fused-cuda' if fused else 'plain'} on {self.device}",
               file=sys.stderr, flush=True)
         self.rollout = make_rollout_fn(

@@ -10,7 +10,8 @@ same module's weights:
   the relaxed chunk-window kernel for SA0 when ``fast_grouping=W > 0``
   (:mod:`mpinets_torch.kernels.ops`);
 * global SA (group-all), FC head with GroupNorm, q-encoder and decoder:
-  plain dense products (:func:`tail`), as the JAX package leaves them to
+  the policy's own :meth:`~mpinets_torch.model.policy.MotionPolicyNetwork.head`
+  in plain dense products (:func:`tail`), as the JAX package leaves them to
   XLA.
 
 On CPU tensors the kernel wrappers run their plain versions, so this path
@@ -19,20 +20,27 @@ runs (slowly) in the CPU tests.
 
 from __future__ import annotations
 
+import functools
+
 import torch
-from torch.nn import functional as F
 
 from mpinets_torch.kernels import ops
 from mpinets_torch.utils import trace
 
 
 def stage_sizes(model):
-    """(SA0, SA1) radius and nsample of ``model``'s encoder, as the kernel
-    paths take them: the model's own function, whatever its config. The
-    kernels keep 128 neighbours, so :func:`ops.sa_stage` refuses another
+    """(SA0, SA1) npoint, radius and nsample of ``model``'s encoder, as the
+    kernel paths take them: the model's own function, whatever its config.
+    The kernels keep 128 neighbours, so :func:`ops.sa_stage` refuses another
     nsample rather than compute another function."""
     enc = model.point_cloud_encoder
-    return tuple(dict(radius=sa.radius, nsample=sa.nsample) for sa in (enc.sa0, enc.sa1))
+    return tuple(dict(npoint=sa.npoint, radius=sa.radius, nsample=sa.nsample)
+                 for sa in (enc.sa0, enc.sa1))
+
+
+def mlp_tensors(sa_module):
+    """An SA stage's MLP as Dense [in, out] views of the module's parameters."""
+    return [t for conv in sa_module.mlp.children() for t in (conv.weight.t(), conv.bias)]
 
 
 def _dense(lin, x, cdt):
@@ -52,45 +60,15 @@ def _group_norm(gn, x, num_groups=16, eps=1e-5):
 def sa_weights(model, compute_dtype):
     """(SA0, SA1) MLPs as the SA kernels take them (:func:`ops.prepare_sa_weights`)."""
     enc = model.point_cloud_encoder
-    out = []
-    for sa in (enc.sa0, enc.sa1):
-        convs = (getattr(sa.mlp, f"conv{i}") for i in range(3))
-        dense = [t for conv in convs for t in (conv.weight.t(), conv.bias)]  # [in, out]
-        out.append(ops.prepare_sa_weights(*dense, compute_dtype))
-    return tuple(out)
+    return tuple(ops.prepare_sa_weights(*mlp_tensors(sa), compute_dtype)
+                 for sa in (enc.sa0, enc.sa1))
 
 
 def tail(model, cent1, f1, q_norm, cdt):
-    """Global SA (group all, xyz NOT recentred) + FC head + q encoder +
-    decoder: the dense back half of the policy.
-
-    It repeats the layer order of ``MotionPolicyNetwork.forward`` because its
-    Dense form differs: the product runs in ``cdt`` and the bias is added in
-    f32 (:func:`_dense`, as ``xla_tail`` in the JAX package's fused path),
-    where the plain policy adds the bias in ``cdt`` as flax's
-    ``Dense(dtype=...)`` does. A change to the head's layers changes both.
-    """
-    enc = model.point_cloud_encoder
-    g = torch.cat([cent1, f1], dim=-1)                   # [B, 128, 259]
-    mlp = enc.sa2.mlp
-    h = torch.relu(_dense(mlp.conv0, g, cdt))
-    h = torch.relu(_dense(mlp.conv1, h, cdt))
-    h = torch.relu(_dense(mlp.conv2, h, cdt))
-    emb = h.amax(dim=1)                                  # [B, 1024]
-
-    x = F.leaky_relu(_group_norm(enc.gn0, _dense(enc.fc0, emb, cdt)), 0.01)
-    x = F.leaky_relu(_group_norm(enc.gn1, _dense(enc.fc1, x, cdt)), 0.01)
-    pc_encoding = _dense(enc.fc2, x, cdt)                # [B, 2048]
-
-    x = q_norm
-    for i in range(4):
-        x = F.leaky_relu(_dense(getattr(model, f"feature_encoder_{i}"), x, cdt), 0.01)
-    feature_encoding = _dense(model.feature_encoder_4, x, cdt)
-
-    x = torch.cat([pc_encoding, feature_encoding], dim=-1)
-    for i in range(3):
-        x = F.leaky_relu(_dense(getattr(model, f"decoder_{i}"), x, cdt), 0.01)
-    return _dense(model.decoder_3, x, cdt).float()
+    """:meth:`MotionPolicyNetwork.head` on SA1's output in the JAX fused
+    path's forms (``xla_tail``): each product in ``cdt`` with the bias added
+    in f32 (:func:`_dense`), GroupNorm in plain torch (:func:`_group_norm`)."""
+    return model.head(cent1, f1, q_norm, functools.partial(_dense, cdt=cdt), _group_norm)
 
 
 @torch.no_grad()
@@ -99,7 +77,6 @@ def fused_policy_apply(
     point_cloud: torch.Tensor,  # [B, N, 4]
     q_norm: torch.Tensor,       # [B, 7]
     compute_dtype=torch.bfloat16,
-    sa_npoints: tuple = (512, 128),
     fast_grouping: int = 0,
     sa_impl: str = "v8",
     bf16_cloud: bool = False,
@@ -107,6 +84,8 @@ def fused_policy_apply(
     fps_impl: str = "v1",
 ) -> torch.Tensor:
     """Delta-q prediction, numerically equivalent to ``model(xyz, q)``.
+    Each stage's npoint, radius and nsample are the model's
+    (:func:`stage_sizes`).
 
     ``fast_grouping=W`` (nonzero) switches SA0 to the relaxed chunk-window
     kernel: each centroid searches only its W nearest chunks of 128 points.
@@ -133,25 +112,26 @@ def fused_policy_apply(
 
     exact = dict(impl=sa_impl, centroids_in_cloud=sa_impl in ("v5", "v8"))
     sa0, sa1 = stage_sizes(model)
+    ball0, ball1 = ((sa["radius"], sa["nsample"]) for sa in (sa0, sa1))
 
-    _, cent0 = ops.furthest_point_sample_with_coords(xyz, sa_npoints[0], impl=fps_impl)
+    _, cent0 = ops.furthest_point_sample_with_coords(xyz, sa0["npoint"], impl=fps_impl)
     if fast_grouping:
-        f0, _ = ops.sa_stage_fast(xyz, feat, cent0, w0, **sa0, window=fast_grouping)
+        f0, _ = ops.sa_stage_fast(xyz, feat, cent0, w0, *ball0, window=fast_grouping)
     else:
-        f0, _ = ops.sa_stage(xyz.float(), feat, cent0.float(), w0, **sa0, **exact)
+        f0, _ = ops.sa_stage(xyz.float(), feat, cent0.float(), w0, *ball0, **exact)
 
-    _, cent1 = ops.furthest_point_sample_with_coords(cent0, sa_npoints[1], impl=fps_impl)
-    f1, _ = ops.sa_stage(cent0.float(), f0, cent1.float(), w1, **sa1, **exact)
+    _, cent1 = ops.furthest_point_sample_with_coords(cent0, sa1["npoint"], impl=fps_impl)
+    f1, _ = ops.sa_stage(cent0.float(), f0, cent1.float(), w1, *ball1, **exact)
     with trace.span("policy.tail"):
         return tail(model, cent1.float(), f1, q_norm, cdt)
 
 
-def make_fused_apply(compute_dtype=torch.bfloat16, sa_npoints: tuple = (512, 128),
-                     fast_grouping: int = 0, sa_impl: str = "v8",
+def make_fused_apply(compute_dtype=torch.bfloat16, fast_grouping: int = 0, sa_impl: str = "v8",
                      bf16_cloud: bool = False, fps_impl: str = "v1"):
-    """(model, xyz, q) -> dq with the knobs bound, for the rollout engine.
-    The SA weights are made once per model (:func:`sa_weights`) and made
-    again only when the model's SA parameters change."""
+    """(model, xyz, q) -> dq with the knobs bound, for the rollout engine;
+    the stages' sizes are each model's own. The SA weights are made once per
+    model (:func:`sa_weights`) and made again only when the model's SA
+    parameters change."""
     made = {}
 
     def apply(model, point_cloud, q_norm):
@@ -162,7 +142,7 @@ def make_fused_apply(compute_dtype=torch.bfloat16, sa_npoints: tuple = (512, 128
             made["key"], made["weights"] = key, sa_weights(model, compute_dtype)
         return fused_policy_apply(
             model, point_cloud, q_norm, compute_dtype=compute_dtype,
-            sa_npoints=sa_npoints, fast_grouping=fast_grouping, sa_impl=sa_impl,
+            fast_grouping=fast_grouping, sa_impl=sa_impl,
             bf16_cloud=bf16_cloud, weights=made["weights"], fps_impl=fps_impl,
         )
 

@@ -7,14 +7,14 @@ gradient flows only through the gather -> shared MLP -> max-pool chain:
 * forward: the fused SA kernel (:func:`mpinets_torch.kernels.ops.sa_stage`),
   which also returns the selected indices and, for ``sa_impl="v8"``, the
   gathered raw block [B, S, 128, 3 + C];
-* backward, in a ``torch.autograd.Function``: for v8 under bf16, the
-  kernels of :func:`mpinets_torch.kernels.ops.sa_stage_backward`, which run
-  the stage's backward over the valid rows of the saved raw block in the
-  forward kernel's arithmetic (their plain version on CPU tensors). The
-  other stages replay in plain torch: v8 under f32 repeats the dense MLP
-  over all 128 slots of the raw block, recentred first
-  (``fused_train.py:81-97,128-164``), with the valid mask rebuilt from the
-  fill convention; v3/v5 gather again by the saved indices
+* backward, in a ``torch.autograd.Function``: for v8, the stage's backward
+  over the valid rows of the saved raw block in the forward kernel's
+  arithmetic: under bf16 the kernels of
+  :func:`mpinets_torch.kernels.ops.sa_stage_backward` (their plain version
+  on CPU tensors), under f32 that plain version,
+  :func:`~mpinets_torch.kernels.ops.sa_stage_backward_plain`, on either
+  device. v3/v5, whose count==0 rule is another function, replay the stage
+  in plain torch, gathered again by the saved indices
   (``fused_train.py:99-114,167-184``). The JAX package's VJP is plain XLA:
   the backward kernel replaces none of its kernels.
 
@@ -28,7 +28,7 @@ from typing import NamedTuple
 import torch
 
 from mpinets_torch.kernels import ops
-from mpinets_torch.model.fused import stage_sizes, tail
+from mpinets_torch.model.fused import mlp_tensors, stage_sizes, tail
 
 
 class _Stage(NamedTuple):
@@ -37,19 +37,6 @@ class _Stage(NamedTuple):
     compute_dtype: torch.dtype
     sa_impl: str
     features_grad: bool
-
-
-def _mlp_max(raw, centroids, valid, w1, b1, w2, b2, w3, b3, cdt):
-    """Dense MLP + masked max over slots, the train backward's replay of the
-    stage (``fused_train.py:81-97``). raw [B, S, ns, 3 + C] (not recentred;
-    invalid slots are zero rows, masked out); activations stored in ``cdt``
-    as the kernel stores them."""
-    h = torch.cat([raw[..., :3] - centroids[:, :, None, :], raw[..., 3:]], dim=-1).to(cdt)
-    for w, b in ((w1, b1), (w2, b2)):
-        h = torch.relu((h @ w.to(cdt)).float() + b).to(cdt)
-    h = torch.relu((h @ w3.to(cdt)).float() + b3)
-    h = torch.where(valid[..., None], h, torch.full_like(h, -torch.inf))
-    return h.amax(dim=2)                                  # [B, S, C3]
 
 
 def _recompute(features, w1, b1, w2, b2, w3, b3, xyz, centroids, idx, cdt):
@@ -67,8 +54,9 @@ def _recompute(features, w1, b1, w2, b2, w3, b3, xyz, centroids, idx, cdt):
 
 
 class SAStageTrain(torch.autograd.Function):
-    """One SA stage: the kernel forward; the backward kernels for v8 under
-    bf16, else the plain-torch replay.
+    """One SA stage: the kernel forward; for v8 the backward over the saved
+    raw block (the kernels under bf16, their plain version under f32), for
+    v3/v5 the plain-torch replay (:func:`_recompute`).
 
     Inputs: ``stage`` (a :class:`_Stage`), xyz [B, N, 3], features [B, N, C],
     centroids [B, S, 3] and the six f32 MLP tensors (Dense ``[in, out]``).
@@ -93,39 +81,19 @@ class SAStageTrain(torch.autograd.Function):
         stage = ctx.stage
         cdt = stage.compute_dtype
         xyz, features, centroids, *mlp, idx, raw = ctx.saved_tensors
-        if raw is not None and cdt == torch.bfloat16:
+        if raw is not None:
             n_points = features.shape[1] if stage.features_grad else None
-            gf, *grads = ops.sa_stage_backward(raw, idx, centroids, ctx.weights,
-                                               g.contiguous(), n_points)
+            backward = (ops.sa_stage_backward if cdt == torch.bfloat16
+                        else ops.sa_stage_backward_plain)
+            gf, *grads = backward(raw, idx, centroids, ctx.weights, g.contiguous(), n_points)
             return (None, None, gf, None, *grads)
         mlp = [t.detach().requires_grad_() for t in mlp]
-        gf = None
+        feats = features.detach().requires_grad_(stage.features_grad)
         with torch.enable_grad():
-            if raw is not None:
-                # fills repeat slot 0; every centroid is a cloud member, so
-                # slot 0 is always a real neighbour (fused_train.py:131-138)
-                valid = ops.valid_slots(idx)
-                raw_ = raw.detach().requires_grad_(stage.features_grad)
-                out = _mlp_max(raw_, centroids, valid, *mlp, cdt)
-                inputs = ([raw_] if stage.features_grad else []) + mlp
-                grads = list(torch.autograd.grad(out, inputs, g))
-                if stage.features_grad:
-                    # the raw block's cotangent, rounded to cdt per addend,
-                    # summed into its points in f32 (fused_train.py:146-164)
-                    draw = grads.pop(0)
-                    b, n, c = features.shape
-                    delta = (draw[..., 3:] * valid[..., None]).to(cdt).float().reshape(-1, c)
-                    rows = (idx.long() + n * torch.arange(b, device=idx.device)[:, None, None])
-                    gf = torch.zeros((b * n, c), dtype=torch.float32, device=features.device)
-                    gf.index_add_(0, rows.reshape(-1), delta)
-                    gf = gf.reshape(b, n, c)
-            else:
-                feats = features.detach().requires_grad_(stage.features_grad)
-                out = _recompute(feats, *mlp, xyz, centroids, idx, cdt)
-                inputs = ([feats] if stage.features_grad else []) + mlp
-                grads = list(torch.autograd.grad(out, inputs, g))
-                if stage.features_grad:
-                    gf = grads.pop(0)
+            out = _recompute(feats, *mlp, xyz, centroids, idx, cdt)
+        inputs = ([feats] if stage.features_grad else []) + mlp
+        grads = list(torch.autograd.grad(out, inputs, g))
+        gf = grads.pop(0) if stage.features_grad else None
         return (None, None, gf, None, *grads)
 
 
@@ -143,18 +111,11 @@ def make_sa_stage_train(radius: float, nsample: int = 128, compute_dtype=torch.b
     return sa
 
 
-def _mlp_tensors(sa_module):
-    """The stage's MLP as Dense [in, out] views of the module's parameters."""
-    convs = (getattr(sa_module.mlp, f"conv{i}") for i in range(3))
-    return [t for conv in convs for t in (conv.weight.t(), conv.bias)]
-
-
 def fused_policy_apply_train(
     model,
     point_cloud: torch.Tensor,  # [B, N, 4]
     q_norm: torch.Tensor,       # [B, 7]
     compute_dtype=torch.bfloat16,
-    sa_npoints: tuple = (512, 128),
     sa_impl: str = "v8",
 ) -> torch.Tensor:
     """Differentiable twin of :func:`mpinets_torch.model.fused.fused_policy_apply`:
@@ -170,20 +131,19 @@ def fused_policy_apply_train(
                               features_grad=False)
     sa1 = make_sa_stage_train(size1["radius"], size1["nsample"], cdt, sa_impl)
 
-    _, cent0 = ops.furthest_point_sample_with_coords(xyz.detach(), sa_npoints[0])
-    f0 = sa0(xyz, feat, cent0, *_mlp_tensors(enc.sa0))
-    _, cent1 = ops.furthest_point_sample_with_coords(cent0, sa_npoints[1])
-    f1 = sa1(cent0, f0, cent1, *_mlp_tensors(enc.sa1))
+    _, cent0 = ops.furthest_point_sample_with_coords(xyz.detach(), size0["npoint"])
+    f0 = sa0(xyz, feat, cent0, *mlp_tensors(enc.sa0))
+    _, cent1 = ops.furthest_point_sample_with_coords(cent0, size1["npoint"])
+    f1 = sa1(cent0, f0, cent1, *mlp_tensors(enc.sa1))
     return tail(model, cent1, f1, q_norm, cdt)
 
 
-def make_fused_train_apply(compute_dtype=torch.bfloat16, sa_npoints: tuple = (512, 128),
-                           sa_impl: str = "v8"):
+def make_fused_train_apply(compute_dtype=torch.bfloat16, sa_impl: str = "v8"):
     """(model, point_cloud, q_norm) -> dq with exact parameter gradients,
     the ``apply_fn`` of :func:`mpinets_torch.train.learner.loss_fn`."""
 
     def apply(model, point_cloud, q_norm):
         return fused_policy_apply_train(model, point_cloud, q_norm, compute_dtype=compute_dtype,
-                                        sa_npoints=sa_npoints, sa_impl=sa_impl)
+                                        sa_impl=sa_impl)
 
     return apply

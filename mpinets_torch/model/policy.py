@@ -15,6 +15,7 @@ kernels. ``compute_dtype`` runs each Dense in that type, as flax's
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -69,23 +70,21 @@ class SetAbstraction(nn.Module):
 
 
 class GlobalSetAbstraction(nn.Module):
-    """The final group-all SA stage."""
+    """The final group-all SA stage's MLP; :meth:`MotionPolicyNetwork.head`
+    runs it."""
 
     def __init__(self, in_features, mlp, compute_dtype):
         super().__init__()
         self.mlp = SharedMLP(3 + in_features, mlp, compute_dtype)
 
-    def forward(self, xyz, features) -> torch.Tensor:
-        out = self.mlp(pointnet.group_all(xyz, features))  # [B, 1, N, C]
-        return torch.amax(out, dim=-2)[:, 0]
-
 
 class MPiNetsPointNet(nn.Module):
-    """Point-cloud encoder (``model.py:355-426``)."""
+    """Point-cloud encoder's layers (``model.py:355-426``):
+    :class:`MotionPolicyNetwork` runs SA0 and SA1, then the rest in its
+    :meth:`~MotionPolicyNetwork.head`."""
 
     def __init__(self, compute_dtype, sa_npoints, sa_nsamples, sa_radii):
         super().__init__()
-        self.compute_dtype = compute_dtype
         self.sa0 = SetAbstraction(sa_npoints[0], sa_radii[0], sa_nsamples[0], 1,
                                   (64, 64, 64), compute_dtype)
         self.sa1 = SetAbstraction(sa_npoints[1], sa_radii[1], sa_nsamples[1], 64,
@@ -96,16 +95,6 @@ class MPiNetsPointNet(nn.Module):
         self.fc1 = nn.Linear(4096, 2048)
         self.gn1 = nn.GroupNorm(16, 2048, eps=1e-5)
         self.fc2 = nn.Linear(2048, 2048)
-
-    def forward(self, point_cloud: torch.Tensor) -> torch.Tensor:
-        """point_cloud: [B, N, 4] (xyz + segmentation) -> [B, 2048]."""
-        cdt = self.compute_dtype
-        xyz, features = self.sa0(point_cloud[..., :3], point_cloud[..., 3:])
-        xyz, features = self.sa1(xyz, features)
-        features = self.sa2(xyz, features)
-        x = F.leaky_relu(self.gn0(dense(self.fc0, features, cdt).float()), 0.01)
-        x = F.leaky_relu(self.gn1(dense(self.fc1, x, cdt).float()), 0.01)
-        return dense(self.fc2, x, cdt)
 
 
 class MotionPolicyNetwork(nn.Module):
@@ -125,7 +114,6 @@ class MotionPolicyNetwork(nn.Module):
     ):
         super().__init__()
         self.compute_dtype = compute_dtype
-        self.sa_npoints = tuple(sa_npoints)
         self.point_cloud_encoder = MPiNetsPointNet(
             compute_dtype, sa_npoints, sa_nsamples, sa_radii
         )
@@ -153,16 +141,36 @@ class MotionPolicyNetwork(nn.Module):
                 m.bias.zero_()
 
     def forward(self, xyz: torch.Tensor, q_norm: torch.Tensor) -> torch.Tensor:
-        cdt = self.compute_dtype
-        pc_encoding = self.point_cloud_encoder(xyz)
+        """xyz: [B, N, 4] (xyz + segmentation), q_norm: [B, 7] -> dq [B, 7] f32."""
+        enc = self.point_cloud_encoder
+        cent, features = enc.sa0(xyz[..., :3], xyz[..., 3:])
+        cent, features = enc.sa1(cent, features)
+        return self.head(cent, features, q_norm,
+                         functools.partial(dense, compute_dtype=self.compute_dtype),
+                         lambda gn, x: gn(x.float()))
+
+    def head(self, xyz, features, q_norm, dense_fn, group_norm_fn) -> torch.Tensor:
+        """The policy after SA1: global SA (group all, xyz NOT recentred,
+        max over points), the FC head with GroupNorm, the q-encoder and the
+        decoder. ``dense_fn(linear, x)`` and ``group_norm_fn(gn, x)`` are the
+        layers' forms: the plain forward's flax Dense and the GroupNorm
+        module on f32, or the kernel path's (:func:`mpinets_torch.model.fused.tail`).
+        xyz [B, S, 3], features [B, S, C] -> dq [B, 7] f32."""
+        enc = self.point_cloud_encoder
+        h = torch.cat([xyz, features], dim=-1)
+        for conv in enc.sa2.mlp.children():
+            h = torch.relu(dense_fn(conv, h))
+        x = h.amax(dim=1)                                   # [B, 1024]
+        x = F.leaky_relu(group_norm_fn(enc.gn0, dense_fn(enc.fc0, x)), 0.01)
+        x = F.leaky_relu(group_norm_fn(enc.gn1, dense_fn(enc.fc1, x)), 0.01)
+        pc_encoding = dense_fn(enc.fc2, x)                  # [B, 2048]
         x = q_norm
         for i in range(4):
-            x = F.leaky_relu(dense(getattr(self, f"feature_encoder_{i}"), x, cdt), 0.01)
-        feature_encoding = dense(self.feature_encoder_4, x, cdt)
-        x = torch.cat([pc_encoding, feature_encoding], dim=-1)
+            x = F.leaky_relu(dense_fn(getattr(self, f"feature_encoder_{i}"), x), 0.01)
+        x = torch.cat([pc_encoding, dense_fn(self.feature_encoder_4, x)], dim=-1)
         for i in range(3):
-            x = F.leaky_relu(dense(getattr(self, f"decoder_{i}"), x, cdt), 0.01)
-        return dense(self.decoder_3, x, cdt).float()
+            x = F.leaky_relu(dense_fn(getattr(self, f"decoder_{i}"), x), 0.01)
+        return dense_fn(self.decoder_3, x).float()
 
 
 def make_policy(compute_dtype=None, device=None) -> MotionPolicyNetwork:

@@ -53,8 +53,7 @@ def make_sharded_rollout(
     if rollout_kwargs.get("apply_fn") is None and device.type == "cuda":
         from mpinets_torch.model.fused import make_fused_apply
 
-        rollout_kwargs["apply_fn"] = make_fused_apply(model.compute_dtype,
-                                                      sa_npoints=model.sa_npoints)
+        rollout_kwargs["apply_fn"] = make_fused_apply(model.compute_dtype)
     rollout = make_rollout_fn(model, device=device, **rollout_kwargs)
     _, index, _ = axis_group(mesh, data_axis)
 

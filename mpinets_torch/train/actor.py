@@ -101,7 +101,7 @@ def _rollout(model, rollout_steps, sizes, apply_fn, device):
     if apply_fn is None and device.type == "cuda":
         from mpinets_torch.model.fused import make_fused_apply
 
-        apply_fn = make_fused_apply(model.compute_dtype, sa_npoints=model.sa_npoints)
+        apply_fn = make_fused_apply(model.compute_dtype)
     return make_rollout_fn(model, max_steps=rollout_steps, sizes=sizes, stop_on_success=False,
                            record_trajectory=True, apply_fn=apply_fn, device=device)
 

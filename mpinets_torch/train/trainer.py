@@ -239,8 +239,7 @@ class Trainer:
         if fused:
             from mpinets_torch.model.fused_train import make_fused_train_apply
 
-            train_apply_fn = make_fused_train_apply(
-                self.model.compute_dtype, sa_npoints=self.model.sa_npoints)
+            train_apply_fn = make_fused_train_apply(self.model.compute_dtype)
         print(f"train forward path: {'kernels' if fused else 'plain'}", flush=True)
         make_step = functools.partial(
             learner.make_data_parallel_step, self.mesh,

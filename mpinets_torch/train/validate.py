@@ -40,7 +40,7 @@ def make_validation_fn(
     if device.type == "cuda":
         from mpinets_torch.model.fused import make_fused_apply
 
-        apply_fn = make_fused_apply(model.compute_dtype, sa_npoints=model.sa_npoints)
+        apply_fn = make_fused_apply(model.compute_dtype)
     rollout = make_rollout_fn(model, max_steps=rollout_length, sizes=sizes,
                               stop_on_success=False, apply_fn=apply_fn, device=device)
     radii = torch.as_tensor(franka.SCENE_SPHERE_RADII, dtype=torch.float32, device=device)

@@ -50,7 +50,7 @@ runpy.run_path("bench.py", run_name="__main__")
 def small():
     model = MotionPolicyNetwork(compute_dtype=torch.bfloat16, sa_npoints=NPOINTS, device="cpu",
                                 generator=torch.Generator().manual_seed(0)).eval()
-    return model, make_fused_apply(torch.bfloat16, sa_npoints=NPOINTS, fast_grouping=4)
+    return model, make_fused_apply(torch.bfloat16, fast_grouping=4)
 
 
 def test_measure_batch_rates_are_finite_and_positive(small):

@@ -62,7 +62,7 @@ def test_real_weights_policy_matches_flax(real_weights, seed):
         ours = model(torch.from_numpy(pc), torch.from_numpy(q)).numpy()
     np.testing.assert_allclose(ours, ref, atol=2e-5, rtol=1e-4)
     fused = fused_policy_apply(model, torch.from_numpy(pc), torch.from_numpy(q),
-                               compute_dtype=torch.float32, sa_npoints=NPOINTS)
+                               compute_dtype=torch.float32)
     np.testing.assert_allclose(fused.numpy(), ref, atol=2e-5, rtol=1e-4)
 
 

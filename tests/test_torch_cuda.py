@@ -910,7 +910,7 @@ def test_fused_train_kernels_match_plain_gradients(cuda, monkeypatch, sa_impl, d
                                 generator=torch.Generator().manual_seed(15))
 
     def grads(cdt=dtype):
-        apply = fused_train.make_fused_train_apply(cdt, sa_npoints=(64, 16), sa_impl=sa_impl)
+        apply = fused_train.make_fused_train_apply(cdt, sa_impl=sa_impl)
         model.zero_grad()
         torch.sin(apply(model, pc, q)).sum().backward()
         return {k: p.grad.clone() for k, p in model.named_parameters()}

@@ -86,7 +86,7 @@ def setup():
 def _port_value_and_grads(setup, compute_dtype, sa_impl="v8"):
     model = MotionPolicyNetwork(sa_npoints=NPOINTS, device="cpu")
     model.load_state_dict(checkpoint.params_from_flax(setup["variables"]))
-    apply = make_fused_train_apply(compute_dtype, sa_npoints=NPOINTS, sa_impl=sa_impl)
+    apply = make_fused_train_apply(compute_dtype, sa_impl=sa_impl)
     value = torch.sin(apply(model, torch.from_numpy(setup["pc"]),
                             torch.from_numpy(setup["q"]))).sum()
     value.backward()

@@ -81,11 +81,34 @@ def test_fused_matches_policy(flax_and_port, fast_grouping):
     pc, q = (torch.from_numpy(a) for a in _inputs(3))
     with torch.no_grad():
         ref = model(pc, q)
-    ours = fused_policy_apply(model, pc, q, compute_dtype=torch.float32, sa_npoints=NPOINTS,
+    ours = fused_policy_apply(model, pc, q, compute_dtype=torch.float32,
                               fast_grouping=fast_grouping)
     np.testing.assert_allclose(ours.numpy(), ref.numpy(), atol=2e-5, rtol=1e-4)
-    apply = make_fused_apply(torch.float32, sa_npoints=NPOINTS, fast_grouping=fast_grouping)
+    apply = make_fused_apply(torch.float32, fast_grouping=fast_grouping)
     assert torch.equal(apply(model, pc, q), ours)
+
+
+def test_fused_takes_the_models_npoints(flax_and_port, monkeypatch):
+    """The kernel path samples each stage's centroids as the model says
+    (here 16 and 8, not the reference's 512 and 128), with no argument
+    naming them, and equals the plain policy."""
+    from mpinets_torch.kernels import ops
+
+    _, _, model = flax_and_port
+    pc, q = (torch.from_numpy(a) for a in _inputs(8))
+    asked = []
+    fps = ops.furthest_point_sample_with_coords
+
+    def spy(xyz, npoint, **kw):
+        asked.append(npoint)
+        return fps(xyz, npoint, **kw)
+
+    monkeypatch.setattr(ops, "furthest_point_sample_with_coords", spy)
+    ours = make_fused_apply(torch.float32)(model, pc, q)
+    assert asked == list(NPOINTS)
+    with torch.no_grad():
+        ref = model(pc, q)
+    np.testing.assert_allclose(ours.numpy(), ref.numpy(), atol=2e-5, rtol=1e-4)
 
 
 def test_fused_follows_the_models_radii(flax_and_port):
@@ -98,7 +121,7 @@ def test_fused_follows_the_models_radii(flax_and_port):
     with torch.no_grad():
         ref = wide(pc, q)
         assert not torch.allclose(ref, model(pc, q), atol=1e-4)
-    ours = fused_policy_apply(wide, pc, q, compute_dtype=torch.float32, sa_npoints=NPOINTS)
+    ours = fused_policy_apply(wide, pc, q, compute_dtype=torch.float32)
     np.testing.assert_allclose(ours.numpy(), ref.numpy(), atol=2e-5, rtol=1e-4)
 
 
@@ -109,20 +132,19 @@ def test_fused_apply_follows_weight_changes(flax_and_port):
     pc, q = (torch.from_numpy(a) for a in _inputs(6))
     other = MotionPolicyNetwork(sa_npoints=NPOINTS, device="cpu",
                                 generator=torch.Generator().manual_seed(4)).eval()
-    apply = make_fused_apply(torch.float32, sa_npoints=NPOINTS)
+    apply = make_fused_apply(torch.float32)
     before = apply(other, pc, q)
     other.load_state_dict(model.state_dict())
     after = apply(other, pc, q)
     assert not torch.equal(before, after)
-    assert torch.equal(after, fused_policy_apply(model, pc, q, compute_dtype=torch.float32,
-                                                 sa_npoints=NPOINTS))
+    assert torch.equal(after, fused_policy_apply(model, pc, q, compute_dtype=torch.float32))
 
 
 def test_fused_bf16_close_to_f32(flax_and_port):
     _, _, model = flax_and_port
     pc, q = (torch.from_numpy(a) for a in _inputs(4))
-    f32 = fused_policy_apply(model, pc, q, compute_dtype=torch.float32, sa_npoints=NPOINTS)
-    bf16 = fused_policy_apply(model, pc, q, compute_dtype=torch.bfloat16, sa_npoints=NPOINTS)
+    f32 = fused_policy_apply(model, pc, q, compute_dtype=torch.float32)
+    bf16 = fused_policy_apply(model, pc, q, compute_dtype=torch.bfloat16)
     assert bf16.dtype == torch.float32 and bf16.shape == (2, 7)
     np.testing.assert_allclose(bf16.numpy(), f32.numpy(), atol=2e-2 * f32.abs().max().item())
 
@@ -134,11 +156,11 @@ def test_unported_knobs_raise(flax_and_port):
     ``test_bf16_cloud_matches_pallas_interpret``)."""
     _, _, model = flax_and_port
     pc, q = (torch.from_numpy(a) for a in _inputs(5))
-    v8 = fused_policy_apply(model, pc, q, compute_dtype=torch.float32, sa_npoints=NPOINTS)
+    v8 = fused_policy_apply(model, pc, q, compute_dtype=torch.float32)
     for sa_impl in ("v3", "v5"):
         assert torch.equal(fused_policy_apply(model, pc, q, compute_dtype=torch.float32,
-                                              sa_npoints=NPOINTS, sa_impl=sa_impl), v8)
-    out = fused_policy_apply(model, pc, q, sa_npoints=NPOINTS, bf16_cloud=True)
+                                              sa_impl=sa_impl), v8)
+    out = fused_policy_apply(model, pc, q, bf16_cloud=True)
     assert out.shape == (2, 7) and torch.isfinite(out).all()
 
 
@@ -158,8 +180,8 @@ def test_bf16_cloud_matches_pallas_interpret(flax_and_port, fast):
                                bf16_cloud=True, fast_grouping=fast)(
         variables, jnp.asarray(pc), jnp.asarray(q)))
     ours = fused_policy_apply(model, torch.from_numpy(pc), torch.from_numpy(q),
-                              compute_dtype=torch.bfloat16, sa_npoints=NPOINTS,
-                              bf16_cloud=True, fast_grouping=fast).numpy()
+                              compute_dtype=torch.bfloat16, bf16_cloud=True,
+                              fast_grouping=fast).numpy()
     np.testing.assert_allclose(ours, ref, atol=2e-2 * np.abs(ref).max(), rtol=0)
     if fast:
         return
@@ -183,18 +205,18 @@ def test_fps_impl_v2_matches_v1_and_the_jax_fused_forward(flax_and_port):
     _, variables, model = flax_and_port
     pc, q = _inputs(7)
     v1 = fused_policy_apply(model, torch.from_numpy(pc), torch.from_numpy(q),
-                            compute_dtype=torch.float32, sa_npoints=NPOINTS)
+                            compute_dtype=torch.float32)
     v2 = fused_policy_apply(model, torch.from_numpy(pc), torch.from_numpy(q),
-                            compute_dtype=torch.float32, sa_npoints=NPOINTS, fps_impl="v2")
+                            compute_dtype=torch.float32, fps_impl="v2")
     assert torch.equal(v1, v2)
-    apply = make_fused_apply(torch.float32, sa_npoints=NPOINTS, fps_impl="v2")
+    apply = make_fused_apply(torch.float32, fps_impl="v2")
     assert torch.equal(apply(model, torch.from_numpy(pc), torch.from_numpy(q)), v2)
     ref = jax_fused(variables, jnp.asarray(pc), jnp.asarray(q), compute_dtype=jnp.float32,
                     interpret=True, sa_npoints=NPOINTS, fps_impl="v2")
     np.testing.assert_allclose(v2.numpy(), np.asarray(ref), atol=2e-5, rtol=1e-4)
     with pytest.raises(ValueError, match="FPS impl"):
         fused_policy_apply(model, torch.from_numpy(pc), torch.from_numpy(q),
-                           compute_dtype=torch.float32, sa_npoints=NPOINTS, fps_impl="v9")
+                           compute_dtype=torch.float32, fps_impl="v9")
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu():

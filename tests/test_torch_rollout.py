@@ -93,7 +93,7 @@ def test_rollout_matches_jax(setup, stop_on_success, mode, path):
     ref = jeng.make_rollout_fn(jmodel, max_steps=STEPS, sizes=sizes,
                                stop_on_success=stop_on_success)(variables, prob, key)
     xyz0, idx = _jax_draws(key, prob, sizes, mode == "points")
-    apply_fn = make_fused_apply(torch.float32, sa_npoints=NPOINTS) if path == "fused" else None
+    apply_fn = make_fused_apply(torch.float32) if path == "fused" else None
     ours = teng.make_rollout_fn(model, max_steps=STEPS, sizes=PointCloudSizes(*SIZES),
                                 stop_on_success=stop_on_success, apply_fn=apply_fn,
                                 device="cpu")(_torch_problem(prob), init_cloud=xyz0,

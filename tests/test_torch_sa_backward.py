@@ -1,7 +1,10 @@
-"""The SA backward's plain version (:func:`ops.sa_stage_backward_plain`)
-against the autograd of the replay it replaces in the bf16 train step
-(``fused_train._mlp_max`` over the saved raw block, the feature cotangent
-rounded per slot and summed into its points).
+"""The v8 SA stage's backward over its saved raw block: the plain version
+(:func:`ops.sa_stage_backward_plain`, which the train step runs under f32,
+and under bf16 on CPU tensors) against autograd of the dense replay of the
+stage (``torch_sa_cases.replay_backward``: the MLP over all 128 slots of
+the raw block, recentred first, the feature cotangent rounded per slot and
+summed into its points); and the train step's stage
+(``fused_train.make_sa_stage_train``) against the plain version.
 
 Inputs are built slot by slot, at SA0's widths (C=1 -> 64, 64, 64; no
 feature cotangent) and SA1's (C=64 -> 128, 128, 256), B = 1 and 3, one case
@@ -29,7 +32,7 @@ import torch
 
 from mpinets_torch.kernels import ops
 from mpinets_torch.model import fused_train
-from torch_sa_cases import rel_l2
+from torch_sa_cases import feature_cotangent, rel_l2, replay_backward
 
 SA0 = (1, (64, 64, 64))
 SA1 = (64, (128, 128, 256))
@@ -82,20 +85,7 @@ def _inputs(case, b, widths, seed=3):
 
 
 def _replay(raw, idx, cent, mlp, g, n, features_grad, cdt):
-    """The replay's cotangents: autograd of _mlp_max, gf as the replay sums it."""
-    valid = ops.valid_slots(idx)
-    raw_ = raw.clone().requires_grad_(features_grad)
-    mlp = [t.clone().requires_grad_() for t in mlp]
-    out = fused_train._mlp_max(raw_, cent, valid, *mlp, cdt)
-    grads = list(torch.autograd.grad(out, ([raw_] if features_grad else []) + mlp, g))
-    return [_gf(grads.pop(0), idx, valid, n, cdt) if features_grad else None] + grads
-
-
-def _gf(draw, idx, valid, n, cdt):
-    b, c = draw.shape[0], draw.shape[-1] - 3
-    delta = (draw[..., 3:] * valid[..., None]).to(cdt).float().reshape(-1, c)
-    rows = idx.long() + n * torch.arange(b)[:, None, None]
-    return torch.zeros((b * n, c)).index_add_(0, rows.reshape(-1), delta).reshape(b, n, c)
+    return replay_backward(raw, idx, cent, mlp, g, n if features_grad else None, cdt)
 
 
 def _kernel_arithmetic(raw, idx, cent, mlp, g, n, features_grad, cdt):
@@ -110,7 +100,7 @@ def _kernel_arithmetic(raw, idx, cent, mlp, g, n, features_grad, cdt):
     z = torch.relu(h2 @ rnd(w[4]) + w[5])
     out = torch.where(valid[..., None], z, torch.full_like(z, -torch.inf)).amax(dim=2)
     grads = list(torch.autograd.grad(out, ([raw_] if features_grad else []) + w, g))
-    return [_gf(grads.pop(0), idx, valid, n, cdt) if features_grad else None] + grads
+    return [feature_cotangent(grads.pop(0), idx, n, cdt) if features_grad else None] + grads
 
 
 def _twin(raw, idx, cent, mlp, g, n, features_grad, cdt):
@@ -150,6 +140,40 @@ def test_sa_backward_twin_matches_replay(case, b, widths, dtype):
         bound = np.sqrt(2) * max(rel_l2(r, r32), rel_l2(a, r32)) + BF16_GRAD_FLOOR
         assert rel_l2(a, r) <= bound, (name, rel_l2(a, r), bound)
         close(a, k, 1e-2, name)
+
+
+@pytest.mark.parametrize("widths", [SA0, SA1], ids=["sa0", "sa1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_sa_stage_train_v8_backward_is_the_plain_version(widths, dtype):
+    """The train step's v8 stage, on CPU tensors, takes its gradients from
+    ``ops.sa_stage_backward_plain`` on the raw block its forward saved, bit
+    for bit: its route on every device under f32, and the kernels' CPU
+    route under bf16. SA0 takes no feature cotangent."""
+    c, mlp = widths
+    rng = np.random.default_rng(9)
+    xyz = torch.from_numpy(rng.uniform(-0.2, 0.2, (2, N, 3)).astype(np.float32))
+    feat = torch.from_numpy(rng.uniform(0, 1, (2, N, c)).astype(np.float32))
+    cent = xyz[:, :S].clone()
+    dims = (3 + c,) + mlp
+    tensors = []
+    for i in range(3):
+        tensors.append(rng.normal(size=(dims[i], dims[i + 1])) / np.sqrt(dims[i]))
+        tensors.append(rng.normal(size=dims[i + 1]) * 0.1)
+    tensors = [torch.tensor(t, dtype=torch.float32, requires_grad=True) for t in tensors]
+    g = torch.from_numpy(rng.normal(size=(2, S, dims[-1])).astype(np.float32))
+    features_grad = c > 1
+    sa = fused_train.make_sa_stage_train(0.1, 128, dtype, "v8", features_grad=features_grad)
+    f = feat.clone().requires_grad_()
+    out = sa(xyz, f, cent, *tensors)
+    ours = torch.autograd.grad(out, ([f] if features_grad else []) + tensors, g)
+    weights = ops.prepare_sa_weights(*tensors, compute_dtype=dtype)
+    _, idx, raw = ops.sa_stage(xyz, feat, cent, weights, 0.1, impl="v8",
+                               centroids_in_cloud=True, return_raw=True)
+    ref = ops.sa_stage_backward_plain(raw, idx, cent, weights, g, N if features_grad else None)
+    ref = [t for t in ref if t is not None]
+    assert len(ours) == len(ref) == 6 + features_grad
+    for a, r in zip(ours, ref):
+        assert torch.equal(a, r)
 
 
 def _case_facts(case, b, widths):

@@ -117,7 +117,7 @@ def small_rollout():
     model = MotionPolicyNetwork(sa_npoints=NPOINTS, device="cpu",
                                 generator=torch.Generator().manual_seed(0)).eval()
     run = engine.make_rollout_fn(model, max_steps=3, sizes=SIZES, device="cpu",
-                                 apply_fn=make_fused_apply(torch.float32, sa_npoints=NPOINTS))
+                                 apply_fn=make_fused_apply(torch.float32))
     problem = synthetic.random_problem_batch(torch.Generator().manual_seed(1), 2, device="cpu")
     return lambda: run(problem, torch.Generator().manual_seed(2))
 

@@ -40,7 +40,7 @@ def small_rollout(device="cpu", npoints=NPOINTS, sizes=SIZES, batch=2, dtype=tor
     model = MotionPolicyNetwork(compute_dtype=dtype, sa_npoints=npoints, device=device,
                                 generator=torch.Generator().manual_seed(0)).eval()
     run = engine.make_rollout_fn(model, max_steps=STEPS, sizes=sizes, device=device,
-                                 apply_fn=make_fused_apply(dtype, sa_npoints=npoints))
+                                 apply_fn=make_fused_apply(dtype))
     problem = synthetic.random_problem_batch(torch.Generator(device).manual_seed(1), batch,
                                              device=device)
     return lambda: run(problem, torch.Generator(device).manual_seed(2))
@@ -99,7 +99,7 @@ def test_cpu_train_step_records_batch_and_step(fused):
     model = MotionPolicyNetwork(sa_npoints=NPOINTS, device="cpu",
                                 generator=torch.Generator().manual_seed(0))
     state = learner.init_state(model)
-    step = learner.make_train_step(apply_fn=make_fused_train_apply(torch.float32, NPOINTS)
+    step = learner.make_train_step(apply_fn=make_fused_train_apply(torch.float32)
                                    if fused else None)
 
     def one():

@@ -3,6 +3,48 @@
 torch only once it runs)."""
 
 
+def replay_backward(raw, idx, centroids, mlp, g, n_points, cdt):
+    """The v8 SA stage's backward replayed in plain torch, the reference the
+    backward kernels and their plain version are held to: autograd of the
+    dense MLP over all 128 slots of the raw block [B, S, 128, 3 + C]
+    (recentred first, activations stored in ``cdt``) and the max over the
+    valid slots (the fill rule's), with cotangent ``g`` [B, S, C3]; with
+    ``n_points`` (the cloud's N) the features' cotangent as
+    :func:`feature_cotangent` sums it. ``mlp``: six f32 Dense [in, out]
+    tensors. -> [gf or None, dw1, db1, dw2, db2, dw3, db3]."""
+    import torch
+
+    from mpinets_torch.kernels import ops
+
+    valid = ops.valid_slots(idx)
+    raw_ = raw.detach().requires_grad_(n_points is not None)
+    w = [t.detach().requires_grad_() for t in mlp]
+    with torch.enable_grad():
+        h = torch.cat([raw_[..., :3] - centroids[:, :, None, :], raw_[..., 3:]], dim=-1).to(cdt)
+        for i in (0, 2):
+            h = torch.relu((h @ w[i].to(cdt)).float() + w[i + 1]).to(cdt)
+        h = torch.relu((h @ w[4].to(cdt)).float() + w[5])
+        out = torch.where(valid[..., None], h, torch.full_like(h, -torch.inf)).amax(dim=2)
+        grads = list(torch.autograd.grad(out, ([raw_] if n_points is not None else []) + w, g))
+    gf = feature_cotangent(grads.pop(0), idx, n_points, cdt) if n_points is not None else None
+    return [gf] + grads
+
+
+def feature_cotangent(draw, idx, n_points, cdt):
+    """The features' cotangent [B, N, C] from the raw block's [B, S, 128, 3 + C]:
+    each valid slot's feature columns rounded to ``cdt``, summed into its
+    point in f32."""
+    import torch
+
+    from mpinets_torch.kernels import ops
+
+    b, c = draw.shape[0], draw.shape[-1] - 3
+    delta = (draw[..., 3:] * ops.valid_slots(idx)[..., None]).to(cdt).float().reshape(-1, c)
+    rows = idx.long() + n_points * torch.arange(b, device=idx.device)[:, None, None]
+    gf = torch.zeros((b * n_points, c), dtype=torch.float32, device=draw.device)
+    return gf.index_add_(0, rows.reshape(-1), delta).reshape(b, n_points, c)
+
+
 def exact_mlp(dims, gen, terms=1):
     """MLP weights [in, out] with ``terms`` nonzero terms an output (every
     input where a layer has fewer): output j takes input j mod in and
